@@ -1,11 +1,11 @@
-"""physics_tpu — a TPU-native rigid-body simulation framework.
+"""physics_tpu — a rigid-body simulation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 Rust/wgpu engine (martingoe/physics): 6-DOF rigid bodies, equality-constraint
 dynamics (Baraff-style J·W·Jᵀ·λ solved by matrix-free conjugate gradient),
 semi-implicit Euler integration — extended with a full collision pipeline
 (broad phase, narrow phase, impulse-based contacts), batched environments via
-`vmap`, and multi-chip scaling via `jax.sharding`.
+`vmap`, and multi-device scaling via `jax.sharding`.
 
 Design stance (see SURVEY.md §7):
   * State is a pytree of SoA f32 arrays; the entire step is one jitted,
@@ -14,7 +14,7 @@ Design stance (see SURVEY.md §7):
     instead of dynamic shapes.
   * `compat=True` reproduces the reference's exact numerical semantics,
     including its quirks (SURVEY.md §2b Q1–Q10), for trajectory parity;
-    `compat=False` is the physically-correct TPU-first path.
+    `compat=False` is the physically-correct path.
 """
 
 from physics_tpu.config import SimConfig

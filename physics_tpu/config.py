@@ -75,11 +75,11 @@ class SimConfig:
     # hull shape; ignored otherwise
     hull_fast: bool = True
     # two-phase hull narrow phase (hulls_only shared-hull scenes): an OBB
-    # face-axis SAT prefilter (the shared hull's local AABB, ~60 VPU flops
+    # face-axis SAT prefilter (the shared hull's local AABB, ~60 flops
     # per pair, no vertex factor) drops candidates whose bounding boxes
     # are separated, and the survivors compact to this many lanes before
     # the full hull SAT — whose support matmuls ([D²·V, 9] × [9, P])
-    # dominate the rain narrow phase and scale with candidate lanes.
+    # scale with candidate lanes.
     # Conservative: hull ⊆ OBB, so an OBB separation is a hull
     # separation. Survivors beyond the cap are dropped lowest-pair-first
     # and counted (metrics prefilter_overflow). 0 = off.
@@ -94,127 +94,11 @@ class SimConfig:
     # rank-block bucketed candidate compaction (sweep only): candidates are
     # compacted per block of `bucket_block` consecutive body ranks (capacity
     # per bucket derives from max_pair_candidates, or bucket_cap pins it,
-    # rounded to a multiple of 128). Bounds the rank span of every
-    # fixed-size candidate tile BY CONSTRUCTION — required for the banded
-    # Pallas narrow phase to be safe at any pair density, and replaces the
-    # full-list compact_pairs sort+gather. See ops/broadphase.py.
+    # rounded to a multiple of 128) by one segmented sort, in place of the
+    # full-list compact_pairs sort + gather. See ops/broadphase.py.
     pair_buckets: bool = False
     bucket_block: int = 64              # body ranks per bucket
     bucket_cap: int = 0                 # candidates kept per bucket (0=auto)
-
-    # --- contact solver backend ---
-    # 'jacobi'        — packed-table XLA projected Jacobi (any backend)
-    # 'pallas_banded' — fused single-kernel banded solve (requires
-    #                   broadphase='sweep'; ~10× faster sweeps on TPU, runs
-    #                   interpreted elsewhere). See solver/contacts_pallas.py
-    contact_solver: str = "jacobi"
-    pallas_tile: int = 1024             # contacts per kernel grid step
-    pallas_window: int = 512            # body-rank window per tile (mult 128)
-    # banded Pallas narrow phase (ops/narrowphase_pallas.py): the box-box
-    # SAT manifolds run in one TPU kernel over a VMEM body table. Engages
-    # only for boxes_only scenes with broadphase='sweep' AND
-    # pair_buckets=True — the bucketed layout bounds every candidate
-    # tile's rank span by construction, which is what makes the kernel's
-    # fixed window safe at any pair density (round-1 gating bug fixed).
-    narrowphase_pallas: bool = True
-    # fused bucket-aligned contact table (ops/contact_table.py): narrow
-    # phase + ground contacts + per-bucket contact compaction in ONE
-    # kernel, yielding a rank-banded contact list with STATIC solver tile
-    # bases (no sorts/gathers between broad phase and solve). Engages for
-    # contact_solver='pallas_banded' + boxes_only + bucketed sweep with
-    # bucket_block=128. bucket_ccap pins the per-bucket contact capacity
-    # (0 = max_contacts spread over buckets, 128-aligned).
-    contact_table: bool = False
-    bucket_ccap: int = 0
-    # two-phase narrow phase inside the contact-table kernel: a cheap
-    # face-axis SAT prefilter runs on all candidates, survivors compact
-    # to `bucket_cap2` slots per bucket, and only those run the full
-    # 15-axis manifold + emit + contact compaction (the kernel's cost
-    # scales with candidate lanes). 0 = off. Overflow (survivors beyond
-    # cap2) is counted into pair_overflow — never silent.
-    bucket_cap2: int = 0
-    # fold the ENTIRE broad phase into the contact-table kernel: no
-    # sweep-mask kernel, no segmented candidate sort, no candidate
-    # tensors in HBM — each bucket derives its raw candidates (rank i,
-    # rank i+d), d ≤ sweep_window, from shifted static slices of its
-    # sorted geometry window, compacts AABB survivors to the bucket cap
-    # in-kernel, and (with bucket_cap2) runs the face-SAT prefilter on
-    # those gathered lanes before the full manifold — two-stage, so the
-    # expensive SAT never touches the 128·sweep_window raw set. Requires
-    # contact_table. Window-edge overlap at d = sweep_window is counted
-    # into pair_overflow — never silent.
-    bp_inkernel: bool = False
-    # fused position integration: the solve kernel's final sweep
-    # integrates each tile's own 128 ranks in its epilogue (pos +=
-    # (v + pv)·dt, q ← exp(ω dt) ∘ normalize(exp(pω dt) ∘ q)), replacing
-    # the split-impulse XLA update AND integrate_positions' pos/quat
-    # math. Table path only; ignored under compat (Q2/Q6 stay in XLA).
-    fuse_integrate: bool = False
-    # merge the solve-constants (prep) kernel into the solve kernel's
-    # sweep 0: the solve kernel reads the contact table + warm rows +
-    # unified geometry directly, builds its per-contact constants into
-    # VMEM scratch once, and stops re-streaming consts/la/lb blocks from
-    # HBM on every sweep. Deletes one kernel launch and the consts HBM
-    # roundtrip. Table path only.
-    fuse_prep: bool = False
-    # fused bucket-aligned HULL contact table (ops/hull_table.py): the
-    # shared-hull SAT narrow phase (face supports / edge axes / incident-
-    # face clip / edge-edge closest point), hull-vertex ground contacts,
-    # per-bucket contact compaction and warm-start key matching in ONE
-    # kernel — the hulls_only analogue of contact_table. Engages for
-    # contact_solver='pallas_banded' + hulls_only single-shared-hull
-    # scenes + bucketed sweep with bucket_block=128; reuses bucket_ccap /
-    # bucket_cap2 (in-kernel OBB prefilter cap) and feeds the same banded
-    # solve (fuse_prep/fuse_integrate compose).
-    hull_table: bool = False
-    # persistent anchored contacts (temporal coherence): run the broad
-    # phase + contact-table kernel every `contact_rebuild` steps and
-    # carry the table (with per-contact BODY-FRAME anchors emitted by
-    # the kernel) in SimState between rebuilds. Every step the fused
-    # solve kernel re-derives each contact's point/normal/depth EXACTLY
-    # from the anchors and the bodies' current transforms (sweep-0 prep,
-    # ~30 VPU ops/contact), so the impulse solve is always run against
-    # fresh geometry — only the DISCOVERY of new contacts is delayed by
-    # up to K-1 steps (departing contacts deactivate the moment their
-    # anchored depth goes non-positive). Body order and ranks freeze
-    # between rebuilds, which keeps the banded window guarantee exact.
-    # Requires the table path with fuse_prep; 1 = rebuild every step.
-    contact_rebuild: int = 1
-    # motion guard for contact_rebuild: ALSO rebuild (ignoring the
-    # K-step schedule) whenever max |v|·dt·K exceeds this multiple of
-    # penetration_slop — a fast-moving body could otherwise tunnel
-    # K−1 steps past discovery. Settled piles stay under it (refresh
-    # dominates); drops rebuild every step (full physics). 0 disables.
-    contact_rebuild_vel_factor: float = 2.0
-    # shorter solve schedule on REFRESH steps (contact_rebuild > 1
-    # only): the warm start there is slot-exact and geometry moved one
-    # step, so warm PGS re-converges in fewer sweeps than a rebuild
-    # step needs. 0 = same as contact_iters (single shared kernel);
-    # > 0 compiles a second solve kernel with this velocity-sweep
-    # count for the refresh branch.
-    contact_refresh_iters: int = 0
-    # single-pass bf16 z-table movement in the banded solve kernels: the
-    # per-sweep endpoint gathers and delta scatters use ONE bf16 matmul
-    # instead of the exact hi/lo split pair — halving the solve kernel's
-    # MXU work (docs/PERFORMANCE.md lever 4). Impulse DELTAS round to
-    # ~2⁻⁸ relative per movement; the z accumulator stays f32, so resting
-    # velocities (→ 0) lose no absolute accuracy and split-impulse
-    # positions are tolerant. Keep OFF for restitution-heavy scenes and
-    # trajectory-parity work; piles/stacks measured stable (same
-    # penetration/overflow envelope as exact movement). Guarded at
-    # engine.prepare_contacts: restitution > 0.25 anywhere in the scene
-    # refuses outright, any restitution > 0 warns — never silent.
-    z_bf16: bool = False
-    # streaming fused solve: split the solve kernel's bucket-tile range
-    # into this many sequential passes, each keeping only ITS
-    # consts/one-hot/λ scratch in VMEM (the z table stays resident
-    # across passes). Breaks the everything-resident VMEM ceiling
-    # (~24k bodies) so large scenes keep fuse_prep + the anchored
-    # rebuild. Chunks run block-Gauss-Seidel (later passes see earlier
-    # passes' converged velocities); 1 = single pass (pure Jacobi,
-    # today's kernel), 0 = auto (smallest pass count whose per-pass
-    # scratch fits the VMEM budget — 1 at ≤ 24k bodies).
-    solve_chunks: int = 0
 
     # --- integrator extras (non-compat mode) ---
     renormalize_quat: bool = True

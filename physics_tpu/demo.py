@@ -69,6 +69,9 @@ def main(argv=None) -> None:
     from physics_tpu.config import SimConfig, compat_config
     from physics_tpu.engine import step
     from physics_tpu.scene import demo_scene
+    from physics_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.correct:
         cfg = SimConfig(

@@ -171,31 +171,27 @@ def step_with_metrics(
     `shard=(axis_name, n_shards)`: run inside shard_map with body state
     replicated; constraint rows and contact pairs are sharded across the
     mesh axis (see solve_joints / resolve_contacts).
-    """
-    with jax.named_scope("forces"):
-        state = apply_gravity(state, cfg)
-    with jax.named_scope("joints"):
-        state, joint_metrics = solve_joints(state, cfg, shard=shard)
-    with jax.named_scope("integrate_vel"):
-        state = integrate_velocities(state, cfg)
-    contact_metrics: Dict = {}
-    contacts_on = cfg.ground_plane or cfg.pair_collisions
-    if contacts_on:
-        with jax.named_scope("contacts"):
-            state, contact_metrics = resolve_contacts(state, cfg, shard=shard)
-    with jax.named_scope("integrate_pos"):
-        from physics_tpu.solver.contacts import fused_integration
 
-        if contacts_on and fused_integration(state, cfg):
-            # pos/quat were integrated inside the solve kernel's
-            # epilogue (cfg.fuse_integrate) — only the bookkeeping
-            # half of integrate_positions remains
-            state = state.replace(
-                force=jnp.zeros_like(state.force),
-                torque=jnp.zeros_like(state.torque),
-                step_count=state.step_count + 1,
-            )
-        else:
+    Every float32 contraction of the step is traced at full float32
+    precision: the step's contractions are small geometric products
+    (rotations, SAT supports, one-hot selections) of world coordinates,
+    where a reduced-precision matmul mode (TF32 on a GPU) would cost
+    ~1e-3 relative — centimetres at the coordinates of a large pile,
+    more than a contact depth — and buy no speed at these widths.
+    """
+    with jax.default_matmul_precision("highest"):
+        with jax.named_scope("forces"):
+            state = apply_gravity(state, cfg)
+        with jax.named_scope("joints"):
+            state, joint_metrics = solve_joints(state, cfg, shard=shard)
+        with jax.named_scope("integrate_vel"):
+            state = integrate_velocities(state, cfg)
+        contact_metrics: Dict = {}
+        if cfg.ground_plane or cfg.pair_collisions:
+            with jax.named_scope("contacts"):
+                state, contact_metrics = resolve_contacts(
+                    state, cfg, shard=shard)
+        with jax.named_scope("integrate_pos"):
             state = integrate_positions(state, cfg)
     return state, {**joint_metrics, **contact_metrics}
 
@@ -212,42 +208,7 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
     state's `contact_key`/`contact_lam` buffers match the step's contact
     capacity; this sizes them via eval_shape. Optional — without it the
     solver starts each step from zero impulses.
-
-    Also the cfg/scene compatibility gate for `cfg.z_bf16` (single-pass
-    bf16 z movement, ~2⁻⁸ relative error per velocity read): bounce
-    impulses scale with the READ approach velocity, so restitution-heavy
-    scenes must not run it — refused outright above restitution 0.25,
-    warned (never silent) for mild restitution. state here is concrete
-    (this runs outside jit), so per-shape restitution is checkable.
     """
-    import warnings
-
-    from physics_tpu.solver.contacts import contact_capacity
-
-    if cfg.z_bf16:
-        import numpy as np
-
-        max_rest = max(
-            float(cfg.restitution),
-            float(np.max(np.asarray(state.shapes.restitution),
-                         initial=0.0)),
-        )
-        if max_rest > 0.25:
-            raise ValueError(
-                f"cfg.z_bf16 with restitution {max_rest:.2f} > 0.25: "
-                "bf16 z reads degrade bounce impulses ~2^-8 relative "
-                "(docs/PERFORMANCE.md lever 4) — disable z_bf16 for "
-                "restitution-heavy scenes"
-            )
-        if max_rest > 0.0:
-            warnings.warn(
-                f"cfg.z_bf16 with restitution {max_rest:.2f}: bounce "
-                "impulses carry ~2^-8 relative error from bf16 z reads "
-                "(fine for damping-dominated scenes; disable z_bf16 for "
-                "trajectory-parity work)",
-                stacklevel=2,
-            )
-
     # the hull fast path (hullhull_batched linear-SAT matmuls) covers a
     # small hull-type library via type-pair-segmented candidates, but
     # needs the OBB prefilter for the segmentation and caps the library
@@ -262,6 +223,8 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
 
         n_hulls = state.hulls.verts.shape[0]
         if n_hulls > 1 and not hulls_fast_path(state, cfg):
+            import warnings
+
             why = (f"more than {MAX_FAST_HULL_TYPES} hull types"
                    if n_hulls > MAX_FAST_HULL_TYPES else
                    "cfg.hull_prefilter_cap is 0 (the prefilter performs "
@@ -274,62 +237,13 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
                 "the segmented fast path.",
                 stacklevel=2,
             )
-        from physics_tpu.ops.hull_table import MAX_TABLE_HULL_TYPES
 
-        if n_hulls > MAX_TABLE_HULL_TYPES and cfg.hull_table:
-            warnings.warn(
-                "cfg.hull_table (the fused hull contact-table kernel) "
-                f"supports at most {MAX_TABLE_HULL_TYPES} hull shapes "
-                "(one SAT pass per ordered type pair); this scene's "
-                f"{n_hulls} types run the XLA fast path instead.",
-                stacklevel=2,
-            )
-
-    from physics_tpu.solver.contacts import hull_table_path, table_path
+    from physics_tpu.solver.contacts import contact_capacity
 
     c = contact_capacity(state, cfg)
-    # table paths store component-form [2, c] keys (exact at any n ≤ 2¹⁶,
-    # ops/contact_table.table_keys); generic paths keep the packed int32
-    # feature key consumed by the sort-merge warm match
-    key_shape = ((2, c) if table_path(state, cfg)
-                 or hull_table_path(state, cfg) else (c,))
-    extra = {}
-    if cfg.contact_rebuild > 1:
-        from physics_tpu.solver.contacts import anchored_path
-
-        if anchored_path(state, cfg):
-            # persistent anchored contacts: carry the table + frozen
-            # order + last rebuild's overflow counters across steps
-            # (step 0 always rebuilds, so zeros are never consumed)
-            from physics_tpu.ops.contact_table import CT2_ROWS
-
-            extra = dict(
-                contact_table=jnp.zeros((CT2_ROWS, c), jnp.float32),
-                contact_order=jnp.arange(state.num_bodies,
-                                         dtype=jnp.int32),
-                contact_meta=jnp.zeros((2,), jnp.int32),
-                # displacement-gate reference poses (step 0 always
-                # rebuilds, so the zeros are never consulted)
-                contact_ref=jnp.concatenate(
-                    [jnp.asarray(state.pos), jnp.asarray(state.quat)],
-                    axis=1),
-            )
-        else:
-            # degrade loudly, never silently: the engine rebuilds every
-            # step (full physics) when the anchored preconditions don't
-            # hold — resolve_contacts normalizes contact_rebuild to 1
-            import warnings
-
-            warnings.warn(
-                "cfg.contact_rebuild > 1 has no effect here (needs an "
-                "unsharded contact-table path — box or hull — with "
-                "fuse_prep on the bucketed sweep broad phase; see "
-                "solver.contacts.anchored_path) — rebuilding contacts "
-                "every step", stacklevel=2)
     return state.replace(
-        contact_key=jnp.zeros(key_shape, jnp.int32),
+        contact_key=jnp.zeros((c,), jnp.int32),
         contact_lam=jnp.zeros((3, c), jnp.float32),
-        **extra,
     )
 
 

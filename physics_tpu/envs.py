@@ -1,7 +1,7 @@
 """Batched environments: failure detection and auto-reset.
 
 The reference's failure story is `unwrap()` panics (SURVEY.md §5); a batched
-TPU simulation can't crash one env without losing the other 4095. Instead,
+accelerator simulation can't crash one env without losing the other 4095. Instead,
 divergence (NaN/Inf from explosive stacking or bad user forces) is detected
 in-step per environment and the offending env is reset to its initial state
 — RL-style — while a reset counter surfaces the event in metrics. Pure
@@ -112,13 +112,11 @@ def auto_reset_step_packed(
     of a reset env's contacts simply stop matching.
 
     The health check runs BEFORE the step (unlike the vmapped
-    `auto_reset_step`): in packed mode the solver's one-hot contractions
-    share matmuls across envs, and a NaN that survives into a matmul
-    poisons every env in its band (NaN·0 = NaN). Divergence normally
-    crosses the `max_abs` bound while still finite, so the pre-step reset
-    catches it before NaNs can form; an env that jumps straight to
-    NaN/Inf within one step can still contaminate its band for that one
-    step — those envs reset together on the next call.
+    `auto_reset_step`): in packed mode every env shares one contact
+    buffer (one depth compaction, one warm-start sort), so a diverged
+    env is replaced before its values enter those shared operations.
+    Divergence normally crosses the `max_abs` bound while still finite,
+    so the pre-step reset catches it before NaNs can form.
     """
     k = env_size
 
@@ -153,11 +151,10 @@ def pack_envs(batched: SimState) -> SimState:
     """Flatten a vmapped [E, K, ...] state into ONE [E·K]-body scene.
 
     Block-diagonal packing: body id = e·K + k. With
-    `broadphase='env_blocks'` (static per-env pair lists) and
-    `contact_solver='pallas_banded'` the whole batch solves in one fused
-    kernel — no vmap, so cross-env ops that serialize under vmap (sorts,
-    warm-start matching, compaction) run once at full width instead of E
-    times. The physics is identical to the vmapped step: envs cannot
+    `broadphase='env_blocks'` (static per-env pair lists) the whole batch
+    steps as one scene — no vmap, so cross-env ops that serialize under
+    vmap (sorts, warm-start matching, compaction) run once at full width
+    instead of E times. The physics is identical to the vmapped step: envs cannot
     interact (candidate pairs never cross env boundaries).
 
     Joints pack too (the reference's whole demo is jointed, src/lib.rs:20-42):
@@ -207,10 +204,6 @@ def pack_envs(batched: SimState) -> SimState:
         hulls=take0(batched.hulls),
         contact_key=jnp.zeros((0,), jnp.int32),
         contact_lam=jnp.zeros((3, 0), jnp.float32),
-        contact_table=jnp.zeros((0, 0), jnp.float32),
-        contact_order=jnp.zeros((0,), jnp.int32),
-        contact_meta=jnp.zeros((2,), jnp.int32),
-        contact_ref=jnp.zeros((0, 0), jnp.float32),
         step_count=batched.step_count[0],
     )
 
@@ -241,10 +234,6 @@ def unpack_envs(state: SimState, n_envs: int) -> SimState:
         hulls=tile(state.hulls),
         contact_key=jnp.zeros((e, 0), jnp.int32),
         contact_lam=jnp.zeros((e, 3, 0), jnp.float32),
-        contact_table=jnp.zeros((e, 0, 0), jnp.float32),
-        contact_order=jnp.zeros((e, 0), jnp.int32),
-        contact_meta=jnp.zeros((e, 2), jnp.int32),
-        contact_ref=jnp.zeros((e, 0, 0), jnp.float32),
         step_count=jnp.broadcast_to(state.step_count, (e,)),
     )
 

@@ -1,8 +1,8 @@
 """Checkpoint / resume.
 
 The reference has none — state lives only in RAM (SURVEY.md §5,
-reference: src/physics.rs:25-31). Because SimState is a pytree of arrays the
-TPU framework gets this nearly for free: flatten → savez / load → unflatten.
+reference: src/physics.rs:25-31). Because SimState is a pytree of arrays this
+framework gets it nearly for free: flatten → savez / load → unflatten.
 The CG warm start (`lam_joint`, the analogue of `previous_solution`,
 reference physics.rs:29) and contact warm start round-trip with it.
 """

@@ -3,9 +3,9 @@ kept at the API level as SURVEY.md §2 prescribes.
 
 The reference (src/physics/sparse_matrix.rs:3-58) stores a list of dense
 blocks (row, col, data) and implements y = A·x / y = Aᵀ·x by iterating the
-blocks. That layout is scatter-hostile on TPU, so this equivalent keeps the
+blocks. That layout is scatter-hostile on an accelerator, so this equivalent keeps the
 same *interface* (`add_block`, `multiply_vector`, `tr_multiply_vector`,
-reference sparse_matrix.rs:16-50) over a TPU-shaped representation: a fixed
+reference sparse_matrix.rs:16-50) over a batched representation: a fixed
 [B, bm, bn] block tensor plus int32 origin arrays, with both matvecs as one
 batched einsum followed by a segment-sum over block rows (or columns) —
 no global dense materialization, no dynamic shapes once `finalize`d.

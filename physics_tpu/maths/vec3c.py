@@ -1,11 +1,10 @@
 """Component-form 3-vector math (tuples of same-shaped arrays).
 
-TPU layout note (the reason this module exists): a rank-2 [C, 3] tensor is
-tiled as (8 sublanes × 128 lanes), so the minor dim 3 pads to 128 — every
-elementwise op moves 42× the useful bytes, and gathers break fusion between
-them. Representing each component as its own 1-D [C] array (or [.., C] row)
-tiles perfectly and lets XLA fuse entire contact-math chains into a few
-passes. Measured on v5e: the contact solver's per-sweep cost drops ~10×.
+Layout note (the reason this module exists): a rank-2 [C, 3] tensor has a
+minor dimension of 3, which accelerator memory layouts pad and which breaks
+vectorization along the contact axis. Representing each component as its
+own 1-D [C] array (or [.., C] row) keeps the contact axis contiguous and
+lets XLA fuse entire contact-math chains into a few elementwise passes.
 
 A "v3" is any tuple/list of three equally-shaped arrays (x, y, z).
 """
@@ -78,7 +77,7 @@ def where(mask, a, b) -> V3:
 
 
 def gather(a, idx) -> V3:
-    """Per-component 1-D gather (lane-axis gather; cheap on TPU)."""
+    """Per-component 1-D gather."""
     return (a[0][idx], a[1][idx], a[2][idx])
 
 

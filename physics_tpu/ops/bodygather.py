@@ -1,24 +1,24 @@
 """Body-table gather/scatter with a size-based strategy switch.
 
-Two regimes on TPU (v5e, trace-measured):
+Two regimes:
 
-* LARGE body tables (one big scene): a real lane gather/scatter costs
-  ~4-7 ns per index — fine at N = 4k, C = 24k.
-* SMALL tables under `vmap` (thousands of tiny envs): each vmapped
-  gather/scatter lowers to a serial per-index loop and dominates the step
-  (~25 ms/step at 256 envs × 8 bodies). With N ≤ ~64 the same operation as
-  a dense one-hot contraction is a tiny matmul that vectorizes perfectly
-  across the env batch (0 gathers in the whole program).
+* LARGE body tables (one big scene): a real lane gather/scatter.
+* SMALL tables under `vmap` (thousands of tiny envs): a vmapped
+  gather/scatter can lower to a per-index loop that dominates the step.
+  With N ≤ 64 the same operation as a dense one-hot contraction is a tiny
+  matmul that vectorizes across the env batch (0 gathers in the whole
+  program).
 
 The threshold is static (shapes), so the choice is made at trace time and
 both paths stay jit/vmap/shard_map-compatible.
 
 PRECISION: the one-hot contractions run with precision=HIGHEST. At default
-precision the TPU MXU silently downcasts f32 operands to bf16, turning the
-"gather" into a value-quantizing op (~2⁻⁸ relative — 0.5 absolute for a
-body at x≈150, which is larger than a typical contact depth). HIGHEST
-keeps full f32 semantics — a 0/1 one-hot contraction is then an exact
-gather — and costs nothing at the ≤64-wide shapes this path handles.
+precision an accelerator's matmul units may round f32 operands (bf16 or
+TF32), turning the "gather" into a value-quantizing op (~2⁻⁸ relative for
+bf16 — 0.5 absolute for a body at x≈150, larger than a typical contact
+depth). HIGHEST keeps full f32 semantics — a 0/1 one-hot contraction is
+then an exact gather — and costs nothing at the ≤64-wide shapes this path
+handles.
 """
 
 from __future__ import annotations
@@ -58,8 +58,7 @@ def lane_scatter_add(contrib: Array, ids: Array, n: int) -> Array:
 def scatter_add_1d(contrib: Array, ids: Array, n: int) -> Array:
     """contrib [C], ids [C] with values in [0, n] (n ⇒ dropped) → [n].
 
-    Routed through the 2-D lane scatter: a 1-D scatter-add lowers worse on
-    TPU than the same op with a unit sublane dim (docs/PERFORMANCE.md).
+    Routed through the 2-D lane scatter, so both share one lowering.
     """
     if n + 1 <= DENSE_MAX_N:
         oh = jax.nn.one_hot(ids, n + 1, dtype=contrib.dtype)

@@ -42,11 +42,10 @@ def _clip_polygon(pts: Array, m: Array, plane: Array) -> Tuple[Array, Array]:
     plane: [3] (c_u, c_v, d) keeping points with c_u·u + c_v·v ≤ d.
     Returns (new_pts, new_m).
 
-    TPU note: the cyclic-neighbor gather and the ordered emission are
-    expressed as one-hot einsums, NOT jnp gathers/scatters — batched
-    dynamic scatters cost ~15× more than the equivalent tiny matmul on the
-    MXU (measured on v5e), and this kernel is vmapped over every candidate
-    pair in the scene.
+    The cyclic-neighbor gather and the ordered emission are expressed as
+    one-hot einsums, NOT jnp gathers/scatters: this kernel is vmapped over
+    every candidate pair in the scene, where batched dynamic scatters
+    lower to far slower code than the equivalent tiny contraction.
 
     Capacity is taken from pts.shape[0] (box-box uses 8; the hull-hull
     narrow phase clips larger polygons).
@@ -128,8 +127,8 @@ def box_box_manifold(
     best_face = jnp.argmax(face_sep)
     best_edge = jnp.argmax(edge_sep)
     # One-hot selection throughout this kernel: it is vmapped over every
-    # candidate pair, and batched dynamic-index gathers are ~5× slower than
-    # the equivalent tiny one-hot contraction on TPU (measured on v5e).
+    # candidate pair, where batched dynamic-index gathers lower to slower
+    # code than the equivalent tiny one-hot contraction.
     oh_face = jax.nn.one_hot(best_face, 6, dtype=jnp.float32)
     oh_edge = jax.nn.one_hot(best_edge, 9, dtype=jnp.float32)
     best_face_sep = oh_face @ face_sep

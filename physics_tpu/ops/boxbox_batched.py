@@ -1,4 +1,4 @@
-"""Batched component-form box-box SAT + clipping (TPU hot path).
+"""Batched component-form box-box SAT + clipping (the boxes fast path).
 
 Same algorithm as ops.boxbox.box_box_manifold (SAT over 15 axes with ODE's
 face-preference fudge, reference-face Sutherland–Hodgman clipping, edge-edge
@@ -6,14 +6,14 @@ closest points — see that module's docstring for the geometry), but written
 for a BATCH of pairs with every scalar as its own 1-D [P] array.
 
 Why a second implementation: vmapping the per-pair kernel materializes
-[P, 15, 3] / [P, 8, 8] intermediates whose minor dims pad to the TPU's
-128-lane tiles (42× wasted HBM traffic) — measured 13 ms for 32k pairs on
-v5e. In component form the pair axis is the only array axis, every op tiles
-perfectly, and XLA fuses the whole manifold into a few passes. The per-pair
-module stays as the readable reference; tests assert this one matches it.
+[P, 15, 3] / [P, 8, 8] intermediates with tiny minor dims. In component
+form the pair axis is the only array axis, and XLA fuses the whole
+manifold into a few elementwise passes over it. The per-pair module stays
+as the readable reference; tests assert this one matches it.
 
 All "loops" below are Python-static (15 axes, 8 polygon slots, 4 clip
-planes) — they unroll into straight-line VPU code, no lax control flow.
+planes) — they unroll into straight-line elementwise code, no lax control
+flow.
 """
 
 from __future__ import annotations
@@ -73,11 +73,11 @@ def _select(idx, items):
     return out
 
 
-def _clip(pu, pv, ps, m, cu, cv, d, mosaic=False):
+def _clip(pu, pv, ps, m, cu, cv, d):
     """One Sutherland–Hodgman half-plane clip on the 8-slot polygon.
 
     pu/pv/ps: [CAP, P] slot-major (2-D face coords + interpolated
-    separation; CAP slots ride the sublane axis; CAP is read from the
+    separation; CAP is read from the
     input shape — boxes use 8, the batched hull clip 2·E); m: [P] int32
     live count; keep points with cu·u + cv·v ≤ d ([P]). Mirrors
     ops.boxbox._clip_polygon.
@@ -85,7 +85,7 @@ def _clip(pu, pv, ps, m, cu, cv, d, mosaic=False):
     Shaped as a handful of [CAP, P] / [CAP, CAP, P] tensor ops rather than
     per-slot scalars: the fully unrolled form emitted ~800 tiny HLO ops per
     clip, which blew up compile time superlinearly (the multi-device CPU
-    backend never finished) and fragmented TPU fusions.
+    backend never finished) and fragmented fusions.
     """
     cap = pu.shape[0]
     slots = jnp.arange(cap, dtype=jnp.int32)[:, None]         # [CAP, 1]
@@ -94,12 +94,7 @@ def _clip(pu, pv, ps, m, cu, cv, d, mosaic=False):
 
     # cyclic next slot: i+1, wrapping to slot 0 at i+1 == m
     wrap = (slots + 1) == m[None, :]
-    if mosaic:
-        # concat instead of jnp.roll (sublane roll is not Mosaic-lowerable)
-        shift = lambda x: jnp.concatenate([x[1:], x[:1]], axis=0)
-    else:
-        shift = lambda x: jnp.roll(x, -1, axis=0)
-    nxt = lambda x: jnp.where(wrap, x[0][None, :], shift(x))
+    nxt = lambda x: jnp.where(wrap, x[0][None, :], jnp.roll(x, -1, axis=0))
     g_nxt = nxt(g)
     u_nxt, v_nxt, s_nxt = nxt(pu), nxt(pv), nxt(ps)
 
@@ -112,55 +107,23 @@ def _clip(pu, pv, ps, m, cu, cv, d, mosaic=False):
     is_ = ps + t * (s_nxt - ps)
 
     emit = inside.astype(jnp.int32) + crossing.astype(jnp.int32)
-    # exclusive prefix sum over the static CAP axis, unrolled (the axis is
-    # 8 long; an unrolled chain also keeps this Mosaic-lowerable — Pallas
-    # TPU has no cumsum primitive)
-    parts = [jnp.zeros_like(emit[0])]
-    for s in range(emit.shape[0] - 1):
-        parts.append(parts[-1] + emit[s])
-    start = jnp.stack(parts)
+    start = jnp.cumsum(emit, axis=0) - emit            # exclusive prefix sum
     pos_cur = jnp.where(inside, start, cap)
     pos_int = jnp.where(crossing, start + inside.astype(jnp.int32), cap)
 
     # ordered emission: out[j] = Σ_i (pos_cur[i]==j)·cur[i] + (pos_int[i]==j)·int[i]
-    if mosaic:
-        # Pallas/Mosaic path: no 3-D [CAP, CAP, P] tensors (the Mosaic
-        # emitter dies on them) — static 8×8 unrolled select-accumulate on
-        # [P] vectors. Too many tiny HLO ops for the XLA path (below), but
-        # inside a kernel Mosaic schedules them fine.
-        zero = jnp.zeros_like(pu[0])
-        ou_l, ov_l, os_l = [], [], []
-        for j in range(cap):
-            au, av, as2 = zero, zero, zero
-            for i in range(cap):
-                mc = pos_cur[i] == j
-                mi = pos_int[i] == j
-                au = au + jnp.where(mc, pu[i], 0.0) + jnp.where(mi, iu[i], 0.0)
-                av = av + jnp.where(mc, pv[i], 0.0) + jnp.where(mi, iv[i], 0.0)
-                as2 = (as2 + jnp.where(mc, ps[i], 0.0)
-                       + jnp.where(mi, is_[i], 0.0))
-            ou_l.append(au)
-            ov_l.append(av)
-            os_l.append(as2)
-        ou = jnp.stack(ou_l)
-        ov = jnp.stack(ov_l)
-        os_ = jnp.stack(os_l)
-    else:
-        out_slot = jnp.arange(cap, dtype=jnp.int32)[:, None, None]
-        oh_c = (pos_cur[None, :, :] == out_slot).astype(jnp.float32)
-        oh_i = (pos_int[None, :, :] == out_slot).astype(jnp.float32)
-        ou = (jnp.sum(oh_c * pu[None], axis=1)
-              + jnp.sum(oh_i * iu[None], axis=1))
-        ov = (jnp.sum(oh_c * pv[None], axis=1)
-              + jnp.sum(oh_i * iv[None], axis=1))
-        os_ = (jnp.sum(oh_c * ps[None], axis=1)
-               + jnp.sum(oh_i * is_[None], axis=1))
+    out_slot = jnp.arange(cap, dtype=jnp.int32)[:, None, None]
+    oh_c = (pos_cur[None, :, :] == out_slot).astype(jnp.float32)
+    oh_i = (pos_int[None, :, :] == out_slot).astype(jnp.float32)
+    ou = jnp.sum(oh_c * pu[None], axis=1) + jnp.sum(oh_i * iu[None], axis=1)
+    ov = jnp.sum(oh_c * pv[None], axis=1) + jnp.sum(oh_i * iv[None], axis=1)
+    os_ = (jnp.sum(oh_c * ps[None], axis=1)
+           + jnp.sum(oh_i * is_[None], axis=1))
     new_m = jnp.minimum(jnp.sum(emit, axis=0), cap)
     return ou, ov, os_, new_m
 
 
-def box_box_manifold_batched(pa, ra9, ha, pb, rb9, hb,
-                             mosaic=False) -> Manifold:
+def box_box_manifold_batched(pa, ra9, ha, pb, rb9, hb) -> Manifold:
     """SAT + clipping manifolds for a batch of box pairs, component form.
 
     pa/pb: v3 of [P] (positions); ra9/rb9: row-major 9-tuples of [P]
@@ -268,10 +231,10 @@ def box_box_manifold_batched(pa, ra9, ha, pb, rb9, hb,
     pu, pv, ps = jnp.stack(su), jnp.stack(sv), jnp.stack(ss)   # [CAP, P]
 
     one = jnp.float32(1.0)
-    pu, pv, ps, m = _clip(pu, pv, ps, m, one, 0.0, h_p, mosaic)
-    pu, pv, ps, m = _clip(pu, pv, ps, m, -one, 0.0, h_p, mosaic)
-    pu, pv, ps, m = _clip(pu, pv, ps, m, 0.0, one, h_q, mosaic)
-    pu, pv, ps, m = _clip(pu, pv, ps, m, 0.0, -one, h_q, mosaic)
+    pu, pv, ps, m = _clip(pu, pv, ps, m, one, 0.0, h_p)
+    pu, pv, ps, m = _clip(pu, pv, ps, m, -one, 0.0, h_p)
+    pu, pv, ps, m = _clip(pu, pv, ps, m, 0.0, one, h_q)
+    pu, pv, ps, m = _clip(pu, pv, ps, m, 0.0, -one, h_q)
 
     face_points, face_depth, face_valid = [], [], []
     for k in range(_CAP):
@@ -312,9 +275,6 @@ def box_box_manifold_batched(pa, ra9, ha, pb, rb9, hb,
     edge_depth = -_select(best_edge, sep[6:])
 
     # ---------------- combine ----------------
-    # NOTE: no bool-dtype jnp.where here — Mosaic's select lowering crashes
-    # the TPU compile helper on bool operands (pinpointed by
-    # experiments/pallas_sat_split.py); logical ops lower fine everywhere.
     points, depth, valid = [], [], []
     for k in range(_CAP):
         if k == 0:

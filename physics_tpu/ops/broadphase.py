@@ -1,7 +1,7 @@
 """Broad phase: AABB computation and candidate-pair generation.
 
 New capability — the reference has no collision detection at all
-(SURVEY.md §0). Two TPU-native strategies, both with fixed-capacity outputs:
+(SURVEY.md §0). Three strategies, all with fixed-capacity outputs:
 
   * 'allpairs' — a static upper-triangular pair list masked by AABB overlap.
     Exact; O(N²) pairs. Right choice for N ≲ 512.
@@ -11,6 +11,8 @@ New capability — the reference has no collision detection at all
     Misses a pair only if more than K bodies' x-intervals start inside a
     body's x-extent — surfaced as `pair_overflow` in metrics, never silent
     (SURVEY.md §7 design stance).
+  * 'env_blocks' — batched envs packed block-diagonally into one scene: the
+    static per-env upper-triangular pairs, masked by AABB overlap. Exact.
 """
 
 from __future__ import annotations
@@ -34,12 +36,6 @@ class PairCandidates(NamedTuple):
     body_b: Array   # [P] int32
     mask: Array     # [P] bool
     overflow: Array # [] int32 — pairs potentially missed (sweep window)
-    # broad-phase ranks of the endpoints (sweep: sorted-by-min-x position;
-    # env_blocks: the body id itself). rank_a < rank_b for every emitted
-    # pair — the banded contact solver consumes these instead of re-deriving
-    # them with per-contact gathers. Meaningless (= body ids) for allpairs.
-    rank_a: Array   # [P] int32
-    rank_b: Array   # [P] int32
 
 
 def body_aabbs(state: SimState) -> Array:
@@ -93,16 +89,11 @@ def allpairs_candidates(state: SimState, aabbs: Array) -> PairCandidates:
     ia, ib = _upper_tri_pairs(n)
     collidable = state.shapes.stype != SHAPE_NONE
     mask = _aabb_overlap(aabbs, ia, ib) & collidable[ia] & collidable[ib]
-    return PairCandidates(ia, ib, mask, jnp.int32(0), ia, ib)
+    return PairCandidates(ia, ib, mask, jnp.int32(0))
 
 
 def sweep_order(state: SimState, aabbs: Array) -> Array:
-    """The sweep's body sort order (original body id per sorted rank).
-
-    Shared with the banded contact solver (solver/contacts_pallas.py),
-    which relies on this exact order for its band guarantee: XLA CSE merges
-    the duplicate computation inside one jitted step.
-    """
+    """The sweep's body sort order (original body id per sorted rank)."""
     min_x = aabbs[:, 0, 0]
     collidable = state.shapes.stype != SHAPE_NONE
     sort_key = jnp.where(collidable, min_x, jnp.inf)
@@ -125,41 +116,32 @@ def _sweep_masks(state: SimState, aabbs: Array, k: int):
     aabb_s = aabbs[order]                                  # [N,2,3] (1 gather)
     coll_s = collidable[order]
 
-    if jax.default_backend() == "tpu":
-        # ONE Pallas kernel: AABBs stay in VMEM for the whole window loop
-        # instead of `window` shifted HBM re-reads (ops/sweep_pallas.py)
-        from physics_tpu.ops.sweep_pallas import sweep_window_masks
+    # neighbor j = i+d in sorted order, d = 1..k, shifted padded slices
+    pad_aabb = jnp.concatenate(
+        [aabb_s, jnp.full((k, 2, 3), jnp.inf, aabb_s.dtype)], axis=0
+    )
+    pad_coll = jnp.concatenate([coll_s, jnp.zeros((k,), bool)], axis=0)
+    nb_aabb = jnp.stack(
+        [jax.lax.dynamic_slice_in_dim(pad_aabb, d, n, 0)
+         for d in range(1, k + 1)], axis=1)            # [N,k,2,3]
+    nb_coll = jnp.stack(
+        [jax.lax.dynamic_slice_in_dim(pad_coll, d, n, 0)
+         for d in range(1, k + 1)], axis=1)            # [N,k]
 
-        x_t, full_t = sweep_window_masks(aabb_s, coll_s, k)  # [k, N]
-        mask = full_t.T != 0                                  # [N, k]
-        last_overlap = x_t[k - 1]
-    else:
-        # neighbor j = i+d in sorted order, d = 1..k, shifted padded slices
-        pad_aabb = jnp.concatenate(
-            [aabb_s, jnp.full((k, 2, 3), jnp.inf, aabb_s.dtype)], axis=0
-        )
-        pad_coll = jnp.concatenate([coll_s, jnp.zeros((k,), bool)], axis=0)
-        nb_aabb = jnp.stack(
-            [jax.lax.dynamic_slice_in_dim(pad_aabb, d, n, 0)
-             for d in range(1, k + 1)], axis=1)            # [N,k,2,3]
-        nb_coll = jnp.stack(
-            [jax.lax.dynamic_slice_in_dim(pad_coll, d, n, 0)
-             for d in range(1, k + 1)], axis=1)            # [N,k]
+    # x-overlap: neighbor's min-x must start before our max-x
+    x_overlap = nb_aabb[:, :, 0, 0] <= aabb_s[:, None, 1, 0]
+    lo = jnp.maximum(aabb_s[:, None, 0, :], nb_aabb[:, :, 0, :])
+    hi = jnp.minimum(aabb_s[:, None, 1, :], nb_aabb[:, :, 1, :])
+    full_overlap = jnp.all(lo <= hi, axis=-1)          # [N,k]
 
-        # x-overlap: neighbor's min-x must start before our max-x
-        x_overlap = nb_aabb[:, :, 0, 0] <= aabb_s[:, None, 1, 0]
-        lo = jnp.maximum(aabb_s[:, None, 0, :], nb_aabb[:, :, 0, :])
-        hi = jnp.minimum(aabb_s[:, None, 1, :], nb_aabb[:, :, 1, :])
-        full_overlap = jnp.all(lo <= hi, axis=-1)          # [N,k]
-
-        valid = (
-            jnp.arange(n)[:, None] + jnp.arange(1, k + 1)[None, :]
-        ) < n
-        mask = (
-            valid & x_overlap & full_overlap
-            & coll_s[:, None] & nb_coll
-        )
-        last_overlap = x_overlap[:, -1] & valid[:, -1] & coll_s
+    valid = (
+        jnp.arange(n)[:, None] + jnp.arange(1, k + 1)[None, :]
+    ) < n
+    mask = (
+        valid & x_overlap & full_overlap
+        & coll_s[:, None] & nb_coll
+    )
+    last_overlap = x_overlap[:, -1] & valid[:, -1] & coll_s
     return order, mask, last_overlap
 
 
@@ -168,7 +150,7 @@ def sweep_candidates(
 ) -> PairCandidates:
     """Sort-by-x sweep-and-prune with a fixed neighbor window.
 
-    TPU-shaped: bodies are sorted by AABB min-x once (one gather), then the
+    Bodies are sorted by AABB min-x once (one gather), then the
     window-neighbor AABBs are obtained by STATIC shifted slices of the
     sorted arrays — zero dynamic gathers in the [N·window] candidate
     emission (dynamic gathers of the full candidate set were the broad
@@ -188,37 +170,18 @@ def sweep_candidates(
 
     ia_f = jnp.broadcast_to(order[:, None], (n, k)).reshape(-1)
     ib_f = nb_order.reshape(-1)
-    ranks = jnp.arange(n, dtype=jnp.int32)[:, None]
-    rank_a = jnp.broadcast_to(ranks, (n, k)).reshape(-1)
-    rank_b = jnp.minimum(
-        ranks + jnp.arange(1, k + 1, dtype=jnp.int32)[None, :], n - 1
-    ).reshape(-1)
 
     # overflow: window neighbor k (the furthest we look) still x-overlaps →
     # there may be pairs beyond the window.
     overflow = jnp.sum(last_overlap.astype(jnp.int32))
-    return PairCandidates(ia_f, ib_f, mask.reshape(-1), overflow,
-                          rank_a, rank_b)
-
-
-def band_window(cfg: SimConfig) -> int:
-    """Rank-band half-width guaranteed by the broad phase: candidate
-    pairs connect ranks (r, r+d) with 1 <= d <= band_window. sweep:
-    cfg.sweep_window (AABB-min-x sorted order); env_blocks: K-1 (the
-    within-env upper triangle under the identity order, |a-b| < K).
-    Shared by every banded-kernel window formula so the contact-table
-    and solve kernels agree on one geometry layout."""
-    if cfg.broadphase == "env_blocks":
-        return max(cfg.env_block_size - 1, 1)
-    return cfg.sweep_window
+    return PairCandidates(ia_f, ib_f, mask.reshape(-1), overflow)
 
 
 def bucket_shape(n: int, cfg: SimConfig) -> Tuple[int, int, int]:
     """(block, cap, n_blocks) of the rank-block bucket layout for N bodies.
 
     `block` ranks per bucket; each bucket keeps at most `cap` candidates
-    (cap is forced to a multiple of 128 so banded-kernel tiles align with
-    bucket boundaries). cap derives from max_pair_candidates (total
+    (cap is rounded up to a multiple of 128). cap derives from max_pair_candidates (total
     candidate budget spread evenly over buckets) unless cfg.bucket_cap
     pins it."""
     block = max(cfg.bucket_block, 1)
@@ -230,7 +193,7 @@ def bucket_shape(n: int, cfg: SimConfig) -> Tuple[int, int, int]:
             else 8 * n
         cap = max(total // n_blocks, 128)
     cap = _round_up128(cap)
-    k = min(band_window(cfg), n - 1)
+    k = min(cfg.sweep_window, n - 1)
     cap = min(cap, _round_up128(block * k))
     return block, cap, n_blocks
 
@@ -244,18 +207,13 @@ def sweep_candidates_bucketed(
 ) -> PairCandidates:
     """Sweep broad phase with rank-block bucketed candidate compaction.
 
-    The flat sweep emits [N·K] candidates; compacting them into one
-    contiguous list (compact_pairs) destroys the bound on how many body
-    ranks a fixed-size tile can span, which is what forced the banded
-    Pallas narrow phase off by default (docs/ROADMAP.md round-1 item 1).
-    Here compaction happens PER RANK BLOCK: ranks are grouped into buckets
-    of `cfg.bucket_block` consecutive ranks, and each bucket keeps its
-    first `cap` active candidates (one segmented single-operand uint32
-    sort — the mask rides bit 31, the rank-major slot index the low bits,
-    so surviving candidates stay rank-sorted by construction). A tile of
-    T = m·cap candidates therefore spans at most m·block + sweep_window
-    ranks REGARDLESS of pair density — the banded kernels' windows are
-    bounded by construction, and their tile bases are static.
+    The flat sweep emits [N·K] candidates; compact_pairs would compact
+    them into one contiguous list with a full-length sort + gather. Here
+    compaction happens PER RANK BLOCK: ranks are grouped into buckets of
+    `cfg.bucket_block` consecutive ranks, and each bucket keeps its first
+    `cap` active candidates (one segmented single-operand uint32 sort — the
+    mask rides bit 31, the rank-major slot index the low bits, so
+    surviving candidates stay rank-sorted by construction).
 
     Per-bucket drops are counted into `overflow` (never silent).
     """
@@ -280,16 +238,13 @@ def sweep_candidates_bucketed(
     blk_base = (jnp.arange(n_blocks, dtype=jnp.int32) * block)[:, None]
     rank_a = jnp.minimum(blk_base + slot_s // k, n - 1)    # [NB, cap]
     rank_b = jnp.minimum(rank_a + 1 + slot_s % k, n - 1)
-    rank_a = rank_a.reshape(-1)
-    rank_b = rank_b.reshape(-1)
-    body_a = order[rank_a]
-    body_b = order[rank_b]
+    body_a = order[rank_a.reshape(-1)]
+    body_b = order[rank_b.reshape(-1)]
 
     dropped = jnp.sum(jnp.maximum(
         jnp.sum(m2.astype(jnp.int32), axis=1) - cap, 0))
     overflow = jnp.sum(last_overlap.astype(jnp.int32)) + dropped
-    return PairCandidates(body_a, body_b, live.reshape(-1), overflow,
-                          rank_a, rank_b)
+    return PairCandidates(body_a, body_b, live.reshape(-1), overflow)
 
 
 def env_block_candidates(
@@ -303,9 +258,6 @@ def env_block_candidates(
     dynamic gathers: the [E, K, K] overlap tensor is pure broadcasting and
     the K(K−1)/2 upper-tri lanes are selected with a compile-time index
     list. Exact (overflow ≡ 0) — every possible pair is tested.
-
-    This layout also gives the banded contact solver its band guarantee
-    with the identity body order: |a−b| < K.
     """
     n = state.num_bodies
     k = env_size
@@ -325,8 +277,7 @@ def env_block_candidates(
     base = (jnp.arange(e, dtype=jnp.int32) * k)[:, None]
     ia = (base + jnp.asarray(oi)[None, :]).reshape(-1)
     ib = (base + jnp.asarray(oj)[None, :]).reshape(-1)
-    # identity order: the body id IS the rank
-    return PairCandidates(ia, ib, mask, jnp.int32(0), ia, ib)
+    return PairCandidates(ia, ib, mask, jnp.int32(0))
 
 
 def compact_pairs(cand: PairCandidates, max_pairs: int) -> PairCandidates:
@@ -343,8 +294,7 @@ def compact_pairs(cand: PairCandidates, max_pairs: int) -> PairCandidates:
     # selection by ONE single-operand uint32 sort: the mask rides bit 31,
     # the candidate index the low bits — cheaper than argsort (which sorts
     # a key+payload pair) and stable by construction, so surviving actives
-    # keep emission order (the sweep's rank-major order, which the banded
-    # contact solver's windows rely on). lax.top_k would be O(n·k) here.
+    # keep emission order (the sweep's rank-major order).
     p_idx = jnp.arange(p, dtype=jnp.uint32)
     keyu = jnp.where(cand.mask, p_idx, p_idx | jnp.uint32(1) << 31)
     idx = (jax.lax.sort(keyu)[:max_pairs]
@@ -353,16 +303,13 @@ def compact_pairs(cand: PairCandidates, max_pairs: int) -> PairCandidates:
         jnp.sum(cand.mask.astype(jnp.int32)) - max_pairs, 0
     )
     packed = jnp.stack(
-        [cand.body_a, cand.body_b, cand.mask.astype(jnp.int32),
-         cand.rank_a, cand.rank_b]
+        [cand.body_a, cand.body_b, cand.mask.astype(jnp.int32)]
     )[:, idx]
     return PairCandidates(
         body_a=packed[0],
         body_b=packed[1],
         mask=packed[2] != 0,
         overflow=cand.overflow + dropped,
-        rank_a=packed[3],
-        rank_b=packed[4],
     )
 
 
@@ -370,8 +317,7 @@ def pair_candidates(state: SimState, cfg: SimConfig) -> PairCandidates:
     aabbs = body_aabbs(state)
     if cfg.broadphase == "sweep":
         if cfg.pair_buckets:
-            # already compacted per rank block; compact_pairs would destroy
-            # the bucket layout the banded kernels' static bases rely on
+            # already compacted per rank block
             return sweep_candidates_bucketed(state, aabbs, cfg)
         cand = sweep_candidates(state, aabbs, cfg.sweep_window)
     elif cfg.broadphase == "env_blocks":

@@ -6,7 +6,8 @@ face normals of both hulls (separation evaluated with masked support
 points), the winning face becomes the reference face, and the most
 anti-parallel face of the other hull is clipped against the reference
 face's side planes — Sutherland–Hodgman with depth carried as an
-interpolated coordinate, all one-hot einsums (see boxbox.py TPU note).
+interpolated coordinate, all one-hot einsums (see ops/boxbox.py
+_clip_polygon).
 
 Edge-edge separating axes ARE enumerated, over the cross products of the
 hulls' unique edge DIRECTIONS (precomputed at scene build into

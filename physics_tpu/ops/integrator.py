@@ -13,7 +13,7 @@ compat=True reproduces Q2/Q4/Q6 bit-for-bit (division by mass rather than
 multiplication by a stored inverse, body-frame inertia inverted per step via
 the same adjugate formula, the sin(θ/2) step, no renormalization).
 
-compat=False is the corrected TPU-first integrator: precomputed inv_mass /
+compat=False is the corrected integrator: precomputed inv_mass /
 inv_inertia (statics = 0), world-frame inertia I_w⁻¹ = R·I_b⁻¹·Rᵀ, true
 exponential-map rotation dq = exp(ω·dt), optional explicit gyroscopic term,
 and quaternion renormalization.
@@ -50,10 +50,9 @@ def integrate_velocities(state: SimState, cfg: SimConfig) -> SimState:
         rot = quat.to_matrix(state.quat)
 
         def mv(m, v):
-            # [N,3,3]·[N,3] as broadcast mul+sum: XLA lowers tiny
-            # batched 3×3 matmuls poorly on TPU (measured 34 µs/step at
-            # 4k bodies for the R·I⁻¹·Rᵀ sandwich); the matvec chain
-            # R·(I⁻¹·(Rᵀ·τ)) is pure elementwise VPU work
+            # [N,3,3]·[N,3] as broadcast mul+sum: tiny batched 3×3
+            # matmuls lower to poor code, while the matvec chain
+            # R·(I⁻¹·(Rᵀ·τ)) is pure elementwise work
             return jnp.sum(m * v[:, None, :], axis=-1)
 
         def mtv(m, v):

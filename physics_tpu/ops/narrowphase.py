@@ -4,7 +4,7 @@ New capability (the reference has no collision detection, SURVEY.md §0),
 designed in the engine's constraint spirit: contacts are rows with a point,
 a normal and a depth, consumed by the velocity-level impulse solver.
 
-TPU-native design: every collidable body is presented as a *convex* —
+Accelerator-native design: every collidable body is presented as a *convex* —
 a fixed-capacity vertex set plus a fixed-capacity face-plane set:
 
   * box   → 8 corners, 6 axis faces (generated on the fly from half extents)
@@ -19,7 +19,7 @@ candidates are selected with top_k — fixed shapes, no dynamic allocation.
 
 Known approximation (documented): edge-edge contact between deeply crossed
 boxes and sphere-vs-corner contacts are not generated; face-region contacts
-dominate the BASELINE configs (stacks, piles, rain).
+dominate the benchmark scenes (stacks, piles, rain).
 """
 
 from __future__ import annotations
@@ -56,8 +56,7 @@ class Contacts(NamedTuple):
     body_a: Array   # [C] int32
     body_b: Array   # [C] int32
     point: Array    # [3, C] world (xyz-major: minor dim is the contact
-                    # axis so it tiles onto the 128-lane VPU; see
-                    # maths.vec3c layout note)
+                    # axis, see maths.vec3c layout note)
     normal: Array   # [3, C] world, unit (same layout)
     depth: Array    # [C] penetration (> 0 where active)
     active: Array   # [C] bool
@@ -158,8 +157,8 @@ def convex_data(state: SimState) -> ConvexData:
 
 def _ground_contacts_boxes(state: SimState, cfg: SimConfig) -> Contacts:
     """boxes_only fast path: the 8 box corners against y = ground_height in
-    component form — zero gather/scatter ops (the generic path's top_k +
-    take_along_axis cost ~1.6 ms/step at N = 4k on v5e)."""
+    component form — zero gather/scatter ops, where the generic path runs a
+    top_k + take_along_axis over [N, Vc, 3] tensors."""
     from physics_tpu.maths import vec3c as v3
     from physics_tpu.ops.boxbox_batched import _argmax_unrolled, _select
 
@@ -222,8 +221,7 @@ def _ground_contacts_hulls_fast(state: SimState, cfg: SimConfig
     vertex heights as ONE [V, N] outer-product table (world y of vertex u
     on body b = pos_y[b] + R_b row 1 · v_u), per-column argmax + one-hot
     contraction for the top-k selection, world points reconstructed only
-    for the k SELECTED vertices — no [N, Vc, 3] world-vertex tensor
-    (whose minor dim 3 pads to 128 lanes: 42× HBM traffic).
+    for the k SELECTED vertices — no [N, Vc, 3] world-vertex tensor.
 
     Same contact semantics as the generic `ground_contacts` (deepest-k
     vertices below the plane, point = world vertex, normal +y); keys are
@@ -318,10 +316,7 @@ def ground_contacts(state: SimState, cvx: ConvexData, cfg: SimConfig
     if hulls_fast_path(state, cfg):
         # slot-major shared-hull path (backend-independent XLA ops)
         return _ground_contacts_hulls_fast(state, cfg)
-    if cfg.boxes_only and jax.default_backend() == "tpu":
-        # TPU-layout fast path; on this image's CPU backend its subgraph
-        # combined with the pair path makes XLA emit catastrophically slow
-        # code (~100x) — see pair_contacts note
+    if boxes_fast_path(cfg):
         return _ground_contacts_boxes(state, cfg)
     n = state.num_bodies
     rot = quat.to_matrix(state.quat)                                   # [N,3,3]
@@ -398,7 +393,7 @@ def _pair_contacts_boxes(state: SimState, cand: PairCandidates,
                          cfg: SimConfig) -> Contacts:
     """boxes_only fast path: batched component-form SAT (ops.boxbox_batched)
     with an unrolled top-k slot selection — no [P, slots, 3] tensors are
-    ever materialized (their minor dims pad to 128 lanes on TPU)."""
+    ever materialized."""
     from physics_tpu.maths import vec3c as v3
     from physics_tpu.ops.boxbox_batched import (
         _CAP, _argmax_unrolled, _select, box_box_manifold_batched,
@@ -409,8 +404,8 @@ def _pair_contacts_boxes(state: SimState, cand: PairCandidates,
     kk = min(cfg.max_contacts_per_pair, _CAP)
     n = state.num_bodies
 
-    # packed per-body table → ONE lane gather per endpoint (each separate
-    # gather op costs ~0.25 ms at P = 32k on v5e; 2 ops replace 36)
+    # packed per-body table → ONE lane gather per endpoint (2 gather ops
+    # replace 36 per-field ones)
     # rows: pos(0:3) | R row-major(3:12) | half(12:15) | friction(15) |
     # restitution(16) | movable(17)
     r9 = v3.quat_to_mat(state.quat)
@@ -435,8 +430,8 @@ def _pair_contacts_boxes(state: SimState, cand: PairCandidates,
     )
 
     # keep the SAT manifold and the slot selection in separate XLA
-    # computations: fused together, LLVM/XLA-CPU pathologically hangs
-    # compiling (or executing) the combined kernel — barrier is free on TPU
+    # fusions: fused together, XLA:CPU pathologically hangs compiling (or
+    # executing) the combined kernel
     man = jax.tree_util.tree_map(jax.lax.optimization_barrier, man)
 
     movable = (ta[17] > 0) | (tb[17] > 0)
@@ -491,73 +486,6 @@ def _pair_contacts_boxes(state: SimState, cand: PairCandidates,
     )
 
 
-def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
-                                cfg: SimConfig,
-                                chunked: bool = False) -> Contacts:
-    """Banded-kernel fast path: the SAT manifolds come from ONE Pallas
-    kernel reading a VMEM body table (ops/narrowphase_pallas.py); this
-    wrapper only reshapes its rows into the slot-major Contacts layout
-    (identical to `_pair_contacts_boxes`)."""
-    from physics_tpu.ops.boxbox_batched import _CAP as _BB_CAP
-    from physics_tpu.ops.broadphase import body_aabbs, sweep_order
-    from physics_tpu.ops.narrowphase_pallas import (
-        NP_ID_EXACT_MAX,
-        pair_manifolds_banded,
-    )
-
-    n = state.num_bodies
-    p0 = cand.body_a.shape[0]
-    order = (sweep_order(state, body_aabbs(state))
-             if cfg.broadphase == "sweep" else None)
-    rows, pp, kk = pair_manifolds_banded(state, cand, cfg, order,
-                                         chunked=chunked)
-    if n < NP_ID_EXACT_MAX:
-        # endpoint body ids rode the kernel's one-hot gather (geom row 18)
-        # — the broad-phase id arrays go unused and DCE away, which matters
-        # for the bucketed sweep (its ids would otherwise need 2 gathers)
-        ia = rows[5 * kk + 5][:p0].astype(jnp.int32)
-        ib = rows[5 * kk + 6][:p0].astype(jnp.int32)
-        ia = jnp.where(cand.mask, ia, 0)
-        ib = jnp.where(cand.mask, ib, 0)
-    else:
-        ia, ib = cand.body_a, cand.body_b
-
-    point_c, depth_c, act_c, key_c = [[], [], []], [], [], []
-    amin = jnp.minimum(ia, ib)
-    amax = jnp.maximum(ia, ib)
-    has_key = n * n * _BB_CAP < 2**31 - 1
-    base_key = (amin * n + amax) * _BB_CAP if has_key else None
-    for s in range(kk):
-        for c in range(3):
-            point_c[c].append(rows[5 * s + c][:p0])
-        d = rows[5 * s + 3][:p0]
-        depth_c.append(d)
-        active = d > 0.0
-        act_c.append(active)
-        if has_key:
-            bidx = rows[5 * s + 4][:p0].astype(jnp.int32)
-            key_c.append(jnp.where(active, base_key + bidx, 0))
-        else:
-            key_c.append(jnp.zeros((p0,), jnp.int32))
-    nrm = [rows[5 * kk + c][:p0] for c in range(3)]
-    mu = rows[5 * kk + 3][:p0]
-    rest = rows[5 * kk + 4][:p0]
-
-    cat = lambda xs: jnp.concatenate(xs)                 # slot-major [kk·P]
-    rep = lambda x: jnp.concatenate([x] * kk)
-    return Contacts(
-        body_a=rep(ia),
-        body_b=rep(ib),
-        point=jnp.stack([cat(point_c[c]) for c in range(3)]),
-        normal=jnp.stack([rep(nrm[c]) for c in range(3)]),
-        depth=cat(depth_c),
-        active=cat(act_c),
-        friction=rep(mu),
-        restitution=rep(rest),
-        key=cat(key_c),
-    )
-
-
 def hull_obb_prefilter(
     state: SimState, cand: PairCandidates, cap2: int
 ) -> Tuple[PairCandidates, Array]:
@@ -579,8 +507,7 @@ def hull_obb_prefilter(
     beyond the segment cap are counted into the returned overflow.
 
     Returns (compacted candidates [≈cap2], overflow [] int32 — survivors
-    dropped, never silent). The rank rows ride the same compaction so
-    the banded solver's carries stay aligned.
+    dropped, never silent).
     """
     from physics_tpu.maths import vec3c as v3
 
@@ -658,29 +585,43 @@ def hull_obb_prefilter(
         kept = (keym_s < p).reshape(-1)
         counts = jnp.sum((keym < p).astype(jnp.int32), axis=1)
         overflow = jnp.sum(jnp.maximum(counts - seg_cap, 0))
-    # ONE row-stacked gather for all four index fields (four separate
-    # [P]→[cap2] gathers were the hottest XLA line of the 1k-rain step)
-    packed = jnp.stack(
-        [cand.body_a, cand.body_b, cand.rank_a, cand.rank_b])[:, idx]
+    # ONE row-stacked gather for both index fields
+    packed = jnp.stack([cand.body_a, cand.body_b])[:, idx]
     packed = jnp.where(kept[None, :], packed, 0)
     return PairCandidates(
         body_a=packed[0],
         body_b=packed[1],
         mask=kept,
         overflow=cand.overflow,
-        rank_a=packed[2],
-        rank_b=packed[3],
     ), overflow
 
 
 MAX_FAST_HULL_TYPES = 4   # H² coefficient-table sets + H² segments
 
 
+def _step_platform() -> str:
+    """The platform a step traced now will run on: the `jax.default_device`
+    in effect, else the default backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
+
+
+def boxes_fast_path(cfg: SimConfig) -> bool:
+    """True when boxes_only scenes take the component-form box fast paths
+    (`_ground_contacts_boxes`, `_pair_contacts_boxes`) instead of the
+    generic convex pipeline. Both produce the same contacts
+    (tests/test_boxes_only_path.py). Off on the CPU only: there the fast
+    path's composed graph makes XLA:CPU emit pathologically slow code
+    (~1000x the generic path), so CPU runs keep the generic path.
+    Static: cfg + platform."""
+    return bool(cfg.boxes_only) and _step_platform() != "cpu"
+
+
 def hulls_fast_path(state: SimState, cfg: SimConfig) -> bool:
     """True when pair_contacts routes through the slot-major hull fast
-    path (_pair_contacts_hulls_fast) — the solver's rank-carry layout
-    must mirror this dispatch (solver/contacts.resolve_contacts emits
-    slot-major rank rows for it). Static: cfg + capacities only.
+    path (_pair_contacts_hulls_fast). Static: cfg + capacities only.
 
     Multi-hull-type scenes ride the same path via type-pair-segmented
     candidates, which requires the OBB prefilter (it performs the
@@ -707,8 +648,8 @@ def _pair_contacts_hulls_fast(state: SimState, cand: PairCandidates,
     Emits the same feature keys as the generic epilogue
     ((min·n + max)·S + slot — the pre-selection slot id is the stable
     feature identity) so warm-start matching is path-independent;
-    contact ORDER differs (slot-major, like _pair_contacts_boxes_pallas)
-    which downstream consumers never rely on (rank compaction re-sorts,
+    contact ORDER differs (slot-major, like _pair_contacts_boxes) which
+    downstream consumers never rely on (the depth compaction re-sorts,
     keys are content-based)."""
     n_hulls = state.hulls.verts.shape[0]
     if n_hulls == 1:
@@ -727,7 +668,7 @@ def _pair_contacts_hulls_fast(state: SimState, cand: PairCandidates,
             sl = slice(s * seg_cap, (s + 1) * seg_cap)
             c_s = PairCandidates(
                 cand.body_a[sl], cand.body_b[sl], cand.mask[sl],
-                cand.overflow, cand.rank_a[sl], cand.rank_b[sl])
+                cand.overflow)
             segs.append((c_s, (s // n_hulls, s % n_hulls)))
 
     parts = [_hull_fast_select_rows(state, c_s, cfg, types)
@@ -737,8 +678,7 @@ def _pair_contacts_hulls_fast(state: SimState, cand: PairCandidates,
 
     def slotcat(field):
         # slot-major over the FULL candidate list: slot row k = the
-        # segments' k-th rows concatenated — mirrors the rank-carry
-        # layout concat([cand.rank_a] * kk) in resolve_contacts
+        # segments' k-th rows concatenated
         return cat([cat([pt[field][k] for pt in parts])
                     for k in range(kk)])
 
@@ -772,9 +712,8 @@ def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
     cap = sm.pu.shape[0]
     ns = cap + 1                                           # slots incl. edge
 
-    # ONE [4, N] row-stacked table gathered once per side: separate
-    # gathers for inv_mass/stype/friction/restitution were ~0.2 ms/step
-    # of latency-bound [P]-row gathers at 1k rain (8 ops × ~25 µs)
+    # ONE [4, N] row-stacked table gathered once per side, in place of 8
+    # latency-bound [P]-row gathers of inv_mass/stype/friction/restitution
     btab = jnp.stack([
         (state.inv_mass > 0).astype(jnp.float32),
         (state.shapes.stype == SHAPE_HULL).astype(jnp.float32),
@@ -837,32 +776,13 @@ def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
 
 
 def pair_contacts(state: SimState, cvx: ConvexData,
-                  cand: PairCandidates, cfg: SimConfig,
-                  chunked: bool = False) -> Contacts:
-    """Contacts for the broad-phase candidate pairs (fixed [P·K] output).
-
-    `chunked=True`: `cand` is one shard's slice of the candidate array
-    (row-sharded narrow phase) — propagated to the banded Pallas kernel so
-    it derives tile bases dynamically instead of from bucket indices."""
+                  cand: PairCandidates, cfg: SimConfig) -> Contacts:
+    """Contacts for the broad-phase candidate pairs (fixed [P·K] output)."""
     if hulls_fast_path(state, cfg):
         # single shared hull shape: slot-major manifolds + slot-major
         # top-k epilogue — no [P, S, 3] tensors anywhere in the hot loop
         return _pair_contacts_hulls_fast(state, cand, cfg)
-    if cfg.boxes_only and cfg.narrowphase_pallas and (
-        cfg.broadphase == "sweep" and cfg.pair_buckets
-    ):
-        # banded Pallas manifolds — safe at any pair density because the
-        # bucketed sweep bounds every tile's rank span by construction;
-        # interpreted off-TPU, so CPU tests exercise the same code path as
-        # the TPU step
-        return _pair_contacts_boxes_pallas(state, cand, cfg,
-                                           chunked=chunked)
-    if cfg.boxes_only and jax.default_backend() == "tpu":
-        # The batched component-form SAT is a TPU-layout optimization. On
-        # the CPU backend of this image's jaxlib, executing its
-        # selected-point graph spins forever (runtime codegen bug — the
-        # same program compiles and runs fine on TPU), so other backends
-        # take the generic vmapped path below.
+    if boxes_fast_path(cfg):
         return _pair_contacts_boxes(state, cand, cfg)
 
     ia, ib = cand.body_a, cand.body_b

@@ -34,8 +34,8 @@ def initialize(
     """Initialize jax.distributed for a multi-host run; returns True if a
     multi-process runtime was started.
 
-    With no arguments, auto-detects from the cluster environment (TPU pod
-    metadata / JAX_COORDINATOR_ADDRESS etc., as jax.distributed does) and
+    With no arguments, auto-detects from the cluster environment (SLURM /
+    JAX_COORDINATOR_ADDRESS etc., as jax.distributed does) and
     silently no-ops when the process is alone — safe to call
     unconditionally at program start.
     """

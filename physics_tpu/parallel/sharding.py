@@ -1,19 +1,20 @@
-"""Multi-chip scaling via jax.sharding / shard_map over a device Mesh.
+"""Multi-device scaling via jax.sharding / shard_map over a device Mesh.
 
 The reference is strictly single-process, single-thread, no distributed
-communication of any kind (SURVEY.md §2a). The TPU framework scales along
-two axes, both over ICI with XLA collectives:
+communication of any kind (SURVEY.md §2a). This framework scales along
+two axes, both with XLA collectives over the device interconnect:
 
   * **env axis (data parallel)** — batched independent environments, state
     sharded on the leading env dimension. No cross-device communication at
-    all; each chip steps its shard. This is the RL/throughput axis
-    (BASELINE config: 4096 batched randomized scenes).
+    all; each device steps its shard. This is the RL/throughput axis
+    (e.g. 4096 batched randomized scenes per device).
 
   * **row axis (the model/tensor-parallel analogue)** — ONE giant scene:
     body state replicated, constraint rows and contact pairs sharded. The
     solvers psum impulse/force deltas and CG scalars each iteration
-    (physics_tpu.solver.cg / solver.contacts), which XLA lowers to ICI
-    all-reduces. This is how a scene too contact-heavy for one chip scales.
+    (physics_tpu.solver.cg / solver.contacts), which XLA lowers to
+    all-reduces. This is how a scene too contact-heavy for one device
+    scales.
     Note: results match the single-device step up to f32 reduction order
     (per-shard partial sums + psum vs one scatter) — bit-identical per-step
     semantics, ~1e-5-scale numeric noise, which chaotic contact scenes
@@ -22,7 +23,7 @@ two axes, both over ICI with XLA collectives:
   * **hybrid** — a 2-D mesh ('env', 'row') combines both.
 
 Multi-host: call jax.distributed.initialize() before building the mesh and
-these functions work unchanged over DCN (jax.make_mesh handles the global
+these functions work unchanged across hosts (the mesh covers the global
 device set).
 """
 
@@ -47,7 +48,9 @@ def make_mesh(
     axis_names: Sequence[str],
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """Build a Mesh over the available devices (row-major reshape)."""
+    """Build a Mesh over the available devices (row-major reshape of the
+    device list: every device reaches every other, so the mesh follows the
+    algorithm's axes and assumes no torus)."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     grid = devices[: int(np.prod(axis_sizes))].reshape(tuple(axis_sizes))
     return Mesh(grid, tuple(axis_names))

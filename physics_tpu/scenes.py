@@ -1,4 +1,4 @@
-"""Prebuilt benchmark/test scenes for the BASELINE.json configs."""
+"""Prebuilt benchmark/test scenes and their solver configs."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from physics_tpu.state import SimState
 
 
 def box_stack(n_boxes: int = 10, half: float = 0.5) -> SimState:
-    """BASELINE config: vertical box stack (resting-contact stability)."""
+    """Vertical box stack (resting-contact stability)."""
     b = SceneBuilder()
     for k in range(n_boxes):
         i = b.add_body(
@@ -29,7 +29,7 @@ def box_pile(
     layers: int = 4,
     x_aspect: float = 16.0,
 ) -> SimState:
-    """BASELINE config: N-body box pile dropped above the ground plane.
+    """N-body box pile dropped above the ground plane.
 
     Laid out as a long trench (x-extent ≫ z-extent) so the sort-by-x sweep
     broad phase keeps a low per-window density; this is the scene-design
@@ -67,94 +67,33 @@ def box_pile(
 
 
 def pile_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
-    """Tuned solver/broad-phase capacities for the pile scenes.
-
-    This IS the production pile pipeline: fused contact table + banded
-    Pallas solve + anchored rebuild. Experiments that want the XLA
-    jacobi path for A/Bs must set contact_solver="jacobi" AND
-    contact_rebuild=1 explicitly (the anchored rebuild requires the
-    table path)."""
+    """Solver/broad-phase capacities for the box-pile scenes: the sorted
+    sweep with per-rank-block candidate compaction, the boxes-only
+    narrow phase, and a depth-compacted contact buffer of 6 contacts per
+    body for the warm-started Jacobi solve."""
     return SimConfig(
         compat=False,
         ground_plane=True,
         pair_collisions=True,
         boxes_only=True,
-        contact_solver="pallas_banded",
         broadphase="sweep",
-        sweep_window=48,   # measured: overflow-free on the settled pile (32 overflows)
+        # the trench layout (box_pile) keeps the pile's sorted x-slices
+        # sparse enough that 48 neighbors cover nearly every overlap
+        # (misses are counted in pair_overflow)
+        sweep_window=48,
         max_pair_candidates=8 * n_bodies,
-        # rank-block buckets: per-64-rank candidate compaction (cap 512 at
-        # the 8·N budget) — bounds every banded-kernel tile's rank span by
-        # construction and enables the Pallas narrow phase (default-on)
         pair_buckets=True,
-        # fused bucket-aligned contact table (ops/contact_table.py):
-        # SAT + ground + per-bucket compaction in ONE kernel, static
-        # solver tile bases. Measured on the 4k pile (v5e trace):
-        # 1.45 ms/step vs 1.59 for the two-kernel pipeline, overflow-free
-        # through drop+settle (experiments/table_bench.py).
-        contact_table=True,
         bucket_block=128,
-        # two-phase narrow phase: face-axis prefilter compacts the 1024
-        # AABB-overlap candidates per bucket to the ~true-overlap set
-        # before the full manifold/emit/compaction (whose cost scales
-        # with candidate lanes); 384 ≈ 1.5x the settled pile's per-bucket
-        # true-overlap max — measured on the 4k pile drop+settle: same
-        # contact set/penetration as 512, pair_overflow unchanged, trace
-        # 1.056 → 0.995 ms/step (/tmp/fa2.log, round 3)
-        bucket_cap2=384,
-        # single-pass bf16 z movement in the solve kernel: solve trace
-        # 0.361 → 0.252 ms on the settled 4k pile with the SAME
-        # penetration/overflow envelope as exact movement (/tmp/fa4.log,
-        # round 3; parity: tests/test_contacts_pallas.py z_bf16 test)
-        z_bf16=True,
-        # merged prep + in-kernel integration: measured neutral-to-
-        # slightly-better with better penetration (round 4 A/B), and
-        # required by the anchored rebuild below
-        fuse_prep=True,
-        fuse_integrate=True,
-        # persistent anchored contacts: broad phase + table kernel every
-        # 4th step; between rebuilds the solve kernel re-derives contact
-        # geometry exactly from body-frame anchors (tests/test_rebuild.py)
-        # — only DISCOVERY of new contacts waits ≤ 3 steps. The motion
-        # gate is off for THIS scene on measurement: the trench
-        # avalanches perpetually (max |v| 2–7 m/s), so the round-5
-        # per-bucket displacement gate fires essentially every bucket
-        # every step (measured 3.48M gated vs 8.7M ungated on v5e —
-        # all-moving scenes degenerate the gate to per-step rebuilds),
-        # and the 240-step max-penetration envelope is identical with
-        # and without the delay (K=4: 0.510 vs K=1: 0.525 on v5e; K=8
-        # rejected at 0.977 — experiments/rebuild_bench.py, round 4).
-        # 3.84 → 6.08M body-steps/s. Scenes with HETEROGENEOUS motion
-        # (settled bulk + ballistic intruders, packed envs) should set
-        # contact_rebuild_vel_factor > 0: the gate then recomputes only
-        # moving buckets' contacts per step (discovery within 1 step)
-        # while settled regions ride the cheap refresh — see
-        # bench.bench_batched_envs (11.3M at gated K=32) and
-        # tests/test_rebuild.py::test_gated_refresh_mixed_scene.
-        contact_rebuild=4,
-        contact_rebuild_vel_factor=0.0,
-        # refresh steps re-converge the slot-exact warm start in 4
-        # sweeps (vel AND split-impulse pos — the kernel grid is
-        # max(vel, pos) + 1): 6.08 → 7.25M body-steps/s at the same
-        # envelope/overflow; 3 sweeps starts overflowing the table
-        # (16 drops), 2 degrades the envelope to 0.64 — rejected
-        # (experiments/rebuild_bench.py RIT=…, round 4)
-        contact_refresh_iters=4,
         max_contacts_per_pair=4,
         max_contacts=6 * n_bodies,
         contact_iters=16,
-        # banded-solver window for this scene: measured max tile span 288
-        # on the settled 4k pile; 384 ran the full drop+settle cycle with
-        # band_overflow = 0 and is ~5% faster than the 512 default. The
-        # overflow counter guards regressions (metrics, never silent).
-        pallas_window=384,
         dt=dt,
     )
 
 
 def cube_drop(height: float = 2.0, size: float = 0.5,
               real_assets: bool | None = None) -> SimState:
-    """BASELINE config 1: a single cube.obj hull dropped onto the ground
+    """A single cube.obj hull dropped onto the ground
     plane under gravity (distinct from the reference's swinging-cube demo
     scene, which is jointed and has no ground — reference src/lib.rs:20-42
     has no collision at all; this is the new-capability drop config).
@@ -190,7 +129,7 @@ def cube_drop(height: float = 2.0, size: float = 0.5,
 
 
 def drop_config(dt: float = 1.0 / 120.0) -> SimConfig:
-    """Solver config for the single-hull drop (BASELINE config 1)."""
+    """Solver config for the single-hull drop (`cube_drop`)."""
     return SimConfig(
         compat=False, ground_plane=True, pair_collisions=True,
         contact_iters=16, dt=dt,
@@ -212,7 +151,7 @@ def sphere_rain(n_bodies: int = 256, seed: int = 0) -> SimState:
 
 
 def random_env(seed: int, n_bodies: int = 8) -> SimState:
-    """One randomized small scene (the 4096-batched-envs config unit)."""
+    """One randomized small scene (the unit of the packed-env scenes)."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     for _ in range(n_bodies):
@@ -289,10 +228,7 @@ def mesh_rain_mixed(n_bodies: int = 128, seed: int = 0, size: float = 0.5,
     shapes (bevel cube, octahedron, and at n_types=3 a wedge prism)
     falling onto the ground — the multi-hull-type fast-path
     benchmark/test scene (type-pair-segmented candidates through the
-    linear-SAT coefficient matmuls, ops/narrowphase.hull_obb_prefilter).
-    n_types ≤ MAX_TABLE_HULL_TYPES scenes also ride the fused hull
-    contact table (ops/hull_table.py, one sided SAT pass per ordered
-    type pair)."""
+    linear-SAT coefficient matmuls, ops/narrowphase.hull_obb_prefilter)."""
     from physics_tpu.io.primitives import beveled_cube_mesh
 
     asset = None
@@ -365,81 +301,48 @@ def mesh_rain_mixed(n_bodies: int = 128, seed: int = 0, size: float = 0.5,
 def rain_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
     """Solver/broad-phase settings for the mesh-rain hull scenes.
 
-    hulls_only skips the box-SAT/sphere/vertex-face candidate generation
-    (half the narrow-phase device time at 128 hulls, measured)."""
+    hulls_only skips the box-SAT/sphere/vertex-face candidate generation;
+    single- and few-type hull libraries take the shared-hull fast path
+    (ops/hullhull_batched.py) behind the OBB prefilter."""
     return SimConfig(
         compat=False,
         ground_plane=True,
         pair_collisions=True,
         hulls_only=True,
         broadphase="sweep",
+        # the square rain column is denser per x-slice than the trench
+        # pile: the window misses some settled AABB overlaps, counted in
+        # pair_overflow (never silent)
         sweep_window=32,
-        # 12N candidate caps: measured on TPU (rain_ab A/B). The square
-        # rain column is denser per x-slice than the trench pile, so the
-        # bucketed sweep drops ~1k AABB candidates per step at the
-        # settled 1024 scene (pair_overflow ~990, counted never silent);
-        # window 64 finds ~2.4k more contacts but pushes the per-bucket
-        # candidate cap harder (overflow 1412) at the same wall time —
-        # kept at 32 (round 5 A/B, experiments/rain_bench.py RAIN_SW)
         max_pair_candidates=12 * n_bodies,
-        # two-phase narrow phase: OBB face-SAT prefilter compacts the 8N
+        # two-phase narrow phase: OBB face-SAT prefilter compacts the
         # AABB candidates to the ~true-overlap set (≈3/body settled)
         # before the full hull-SAT support matmuls; overflow-counted
-        # (metrics prefilter_overflow, watch it through drop+settle)
+        # (metrics prefilter_overflow)
         hull_prefilter_cap=4 * n_bodies,
-        # 4 manifold points per pair (same as the box pile): the top-k
-        # slot-selection epilogue is ~kk [P]-row argmax/select passes,
-        # and 4-point face manifolds are the standard stable-stacking
-        # budget; measured stable on the hull stack/drop tests
+        # 4 manifold points per pair (same as the box pile): the standard
+        # stable-stacking budget
         max_contacts_per_pair=4,
-        # 16N contact caps: the K=4 anchored rebuild discovers contact
-        # bursts in batches, which transiently overflowed the 12N table
-        # during the drop (77 dropped); 16N runs the full 360-step
-        # drop+settle overflow-free at ~9% throughput cost (round 5,
-        # /tmp/rainenv A/B on v5e)
         max_contacts=16 * n_bodies,
-        # fused HULL contact table (ops/hull_table.py): SAT + ground +
-        # compaction + warm match in ONE kernel, feeding the fused
-        # banded solve with merged prep + in-kernel integration.
-        # Round-5 adoption A/B (experiments/rain_bench.py, v5e):
-        # 1024-rain 0.955 -> 2.04M body-steps/s, 128-rain 0.39 -> 0.80M
-        contact_solver="pallas_banded",
-        pair_buckets=True,
-        bucket_block=128,
-        contact_table=True,
-        hull_table=True,
-        bucket_cap2=512,
-        fuse_prep=True,
-        fuse_integrate=True,
-        # persistent anchored hull contacts: the hull table kernel (80%
-        # of the step at 1024, 803 of 1015 us) runs every 4th step;
-        # between rebuilds the solve kernel re-derives geometry from
-        # body-frame anchors. Guard OFF on measurement, mirroring the
-        # pile: rain keeps tumbling bodies at 2-4 m/s long after the
-        # floor settles, so the global max|v| guard refuses the refresh
-        # path forever (guard-on measured 0.815M vs 2.04M); the
-        # 360-step drop+settle envelope is K=4: 1.114 vs K=1: 1.089 max
-        # penetration with zero contact overflow at the 16N caps.
-        contact_rebuild=4,
-        contact_rebuild_vel_factor=0.0,
-        contact_refresh_iters=4,
         contact_iters=8,
-        # bf16 z-movement in the banded sweeps (f32 accumulation):
-        # measured +8% on 1024-rain, parity within solver tolerance
-        z_bf16=True,
         dt=dt,
     )
 
 
-def rain_xla_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
-    """The pre-adoption generic-path rain config: XLA shared-hull fast
-    paths (slot-major SAT contractions + OBB prefilter) feeding the
-    banded solve, no fused table/anchoring. Kept as the parity/A-B
-    partner for the production hull-table pipeline (rain_config) — the
-    table tests assert the two produce the same contact sets."""
-    return rain_config(n_bodies, dt).replace(
-        pair_buckets=False, bucket_block=64, bucket_cap2=0,
-        contact_table=False, hull_table=False,
-        fuse_prep=False, fuse_integrate=False,
-        contact_rebuild=1, contact_refresh_iters=0,
+def packed_config(env_size: int, n_envs: int,
+                  dt: float = 1.0 / 60.0) -> SimConfig:
+    """Settings for `n_envs` box envs of `env_size` bodies packed into one
+    block-diagonal scene (envs.pack_envs): the static per-env pair
+    triangle as the broad phase, the boxes-only narrow phase, and 48
+    contact slots per env."""
+    return SimConfig(
+        compat=False,
+        ground_plane=True,
+        pair_collisions=True,
+        boxes_only=True,
+        broadphase="env_blocks",
+        env_block_size=env_size,
+        max_contacts=48 * n_envs,
+        contact_iters=8,
+        dt=dt,
     )

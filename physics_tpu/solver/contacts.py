@@ -1,25 +1,25 @@
 """Velocity-level contact resolution: projected Jacobi impulse solver.
 
 New capability (the reference has no contacts, SURVEY.md §0), architected
-for the TPU: Gauss-Seidel/PGS is inherently sequential, so instead every
-iteration computes impulse corrections for ALL contacts from the current
-velocities (one batched kernel) and scatter-adds them simultaneously
-(segment-sum). Convergence is kept by mass-splitting: each contact's
-correction is scaled by 1/deg, where deg is the number of active contacts
-touching its bodies — the classic averaged-projection trick that makes
-Jacobi contact iteration contractive.
+for a data-parallel accelerator: Gauss-Seidel/PGS is inherently
+sequential, so instead every iteration computes impulse corrections for ALL
+contacts from the current velocities (one batched kernel) and scatter-adds
+them simultaneously (segment-sum). Convergence is kept by mass-splitting:
+each contact's correction is scaled by 1/deg, where deg is the number of
+active contacts touching its bodies — the classic averaged-projection
+trick that makes Jacobi contact iteration contractive.
 
 Per contact, normal impulse λₙ ≥ 0 with a Baumgarte bias velocity
 (β·max(depth − slop, 0)/dt) plus restitution, and a friction box-clamp
 |λₜ| ≤ μ·λₙ along two tangent directions. All state lives in the fori_loop
 carry; the whole solve fuses into the step program.
 
-LAYOUT (v5e-measured, docs/PERFORMANCE.md): all per-contact quantities are
-component-form 1-D [C] arrays (maths.vec3c) — [C, 3] tensors pad their
-minor dim to 128 lanes. Contact vector fields arrive as [3, C] rows
-(narrowphase convention); body state rides packed [rows, N] tables so each
-sweep costs exactly two lane gathers and one lane scatter (ops/bodygather
-switches those to dense one-hot contractions for small vmapped envs).
+LAYOUT: all per-contact quantities are component-form 1-D [C] arrays
+(maths.vec3c) — no [C, 3] tensors with a minor dim of 3. Contact vector
+fields arrive as [3, C] rows (narrowphase convention); body state rides
+packed [rows, N] tables so each sweep costs exactly two lane gathers and
+one lane scatter (ops/bodygather switches those to dense one-hot
+contractions for small vmapped envs).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def _tangent_basis(n):
 
 
 class ContactGeom(NamedTuple):
-    """Per-contact solve constants shared by the XLA and Pallas solvers.
+    """Per-contact solve constants of the impulse solve.
 
     All vector quantities are component-form tuples of [C] arrays
     (maths.vec3c); iw_* are 9-tuples (row-major world inverse inertia,
@@ -93,17 +93,11 @@ def contact_geometry(
     contacts: Contacts,
     cfg: SimConfig,
     axis_name: str | None = None,
-    need_deg: bool = True,
 ) -> ContactGeom:
     """Prologue of the impulse solve: packed body-table gathers → effective
     masses, contact frames, Jacobi relaxation factors. ONE lane gather per
     contact endpoint (see the gather/scatter budget note in
-    `solve_impulses`).
-
-    `need_deg=False` skips the contact-degree scatter; the returned `relax`
-    is then the raw relaxation factor and the caller must divide by the
-    per-contact degree itself (the Pallas solver counts degrees in-kernel,
-    see solver/contacts_pallas.py)."""
+    `solve_impulses`)."""
     n = state.num_bodies
 
     a = contacts.body_a
@@ -117,12 +111,9 @@ def contact_geometry(
     # contact degree per body -> Jacobi relaxation 1/deg (one packed scatter)
     seg_ids = jnp.concatenate([jnp.where(act, a, n),
                                jnp.where(has_b & act, b, n)])
-    if need_deg:
-        deg = scatter_add_1d(jnp.ones_like(seg_ids, jnp.float32), seg_ids, n)
-        if axis_name:
-            deg = jax.lax.psum(deg, axis_name)
-    else:
-        deg = jnp.ones((n,), jnp.float32)
+    deg = scatter_add_1d(jnp.ones_like(seg_ids, jnp.float32), seg_ids, n)
+    if axis_name:
+        deg = jax.lax.psum(deg, axis_name)
 
     # ---- packed body table: ONE lane gather per endpoint ----
     # rows: pos(0:3) | world inv-inertia row-major (3:12) | inv_mass(12) |
@@ -190,26 +181,18 @@ def contact_geometry(
 def warm_start_lambda(
     contacts: Contacts, warm: Tuple[Array, Array], c: int
 ) -> Tuple[Array, Array, Array]:
-    """Match previous-step impulses to this step's contacts by feature key
-    (see `warm_start_lambda_keys` for the mechanics)."""
-    return warm_start_lambda_keys(contacts.key, contacts.active, warm, c)
+    """Match previous-step impulses to this step's contacts by feature key.
 
-
-def warm_start_lambda_keys(
-    keys: Array, active: Array, warm: Tuple[Array, Array], c: int
-) -> Tuple[Array, Array, Array]:
-    """Match previous-step impulses to this step's contact keys.
-
-    sort-merge key matching: ONE argsort + one gather + one scatter.
-    (jnp.searchsorted lowers to a ~15-iteration binary-search while
-    loop of gathers — measured 1.3 ms/step at C = 24k on v5e; this
-    merge costs ~0.35 ms.) Composite sort key (key·2 + tag) keeps each
+    sort-merge key matching: two multi-operand sorts and no gathers
+    (jnp.searchsorted would lower to a ~15-iteration binary-search while
+    loop of gathers). Composite sort key (key·2 + tag) keeps each
     previous-step entry immediately before any current entry with the
     same feature key; pair keys < n²·8 so the ·2 stays in int32.
 
     Returns (lam0_n, lam0_t1, lam0_t2), already masked to active keyed
     contacts.
     """
+    keys, active = contacts.key, contacts.active
     prev_keys, prev_lam = warm
     kp = prev_keys.shape[0]
     comb = jnp.concatenate([prev_keys, keys])
@@ -274,13 +257,13 @@ def solve_impulses(
     scatter becomes a local delta followed by a psum, which keeps the Jacobi
     iteration mathematically identical to the single-device solve.
 
-    GATHER/SCATTER BUDGET (the design driver — on v5e each gather/scatter
-    op costs ~0.1-0.4 ms at these index counts regardless of payload width,
-    so ops are PACKED, not element-wise): per sweep exactly TWO lane
-    gathers (one [rows, N] -> [rows, C] per body endpoint, velocities and
-    angular velocities ride the same table) and ONE lane scatter-add
-    ([rows, 2C] -> [rows, N+1]). The old per-component form issued 24
-    gather/scatter ops per sweep and was ~8x slower end to end.
+    GATHER/SCATTER BUDGET (the design driver — a gather or scatter op
+    costs per index far more than per payload byte, so ops are PACKED,
+    not element-wise): per sweep exactly TWO lane gathers (one
+    [rows, N] -> [rows, C] per body endpoint, velocities and angular
+    velocities ride the same table) and ONE lane scatter-add
+    ([rows, 2C] -> [rows, N+1]), where a per-component form would issue
+    24 gather/scatter ops per sweep.
     """
     n = state.num_bodies
     c = contacts.body_a.shape[0]
@@ -448,19 +431,14 @@ def solve_impulses(
 _VEC_FIELDS = ("point", "normal")  # [3, C] fields of Contacts
 
 
-def _field_gather(contacts: Contacts, idx: Array, extra: Array | None = None):
+def _field_gather(contacts: Contacts, idx: Array) -> Contacts:
     """Reorder every Contacts field by `idx` with ONE packed lane gather.
 
-    `extra` ([R, C] f32) rides the same gather (the values must be exactly
-    representable in f32); when given, returns (contacts, extra_gathered).
-
-    Gather cost on TPU is per-op × per-index (docs/PERFORMANCE.md), so all
-    14 logical rows ride ONE [14, C] f32 table. Int fields are encoded as
-    exact-in-f32 non-negative values (body ids < 2²⁴, +1 bias for the −1
-    ghost id; the key's uint32 bits split into two 16-bit halves) — NOT
-    bit-cast, which would form NaN payloads the TPU may canonicalize in
-    transit, and NOT a second same-index gather, which XLA's TPU fusion
-    pass miscompiles into an unsupported variadic gather.
+    Gather cost is per op × per index, so all 14 logical rows ride ONE
+    [14, C] f32 table. Int fields are encoded as exact-in-f32 non-negative
+    values (body ids < 2²⁴, +1 bias for the −1 ghost id; the key's uint32
+    bits split into two 16-bit halves) — NOT bit-cast, which would form
+    NaN payloads that a device may canonicalize in transit.
     """
     key_u = jax.lax.bitcast_convert_type(contacts.key, jnp.uint32)
     f32 = lambda x: x.astype(jnp.float32)
@@ -476,18 +454,14 @@ def _field_gather(contacts: Contacts, idx: Array, extra: Array | None = None):
         f32(key_u & jnp.uint32(0xFFFF)),
         f32(key_u >> 16),
     ]
-    n_extra = 0
-    if extra is not None:
-        n_extra = extra.shape[0]
-        rows += [extra[r] for r in range(n_extra)]
-    packed = jnp.stack(rows)[:, idx]             # ONE [14+R, C] lane gather
+    packed = jnp.stack(rows)[:, idx]             # ONE [14, C] lane gather
     i32 = lambda r: r.astype(jnp.int32)
     key = jax.lax.bitcast_convert_type(
         (i32(packed[13]).astype(jnp.uint32) << 16)
         | i32(packed[12]).astype(jnp.uint32),
         jnp.int32,
     )
-    out = Contacts(
+    return Contacts(
         body_a=i32(packed[9]) - 1,
         body_b=i32(packed[10]) - 1,
         point=packed[0:3],
@@ -498,9 +472,6 @@ def _field_gather(contacts: Contacts, idx: Array, extra: Array | None = None):
         restitution=packed[8],
         key=key,
     )
-    if extra is not None:
-        return out, packed[14:14 + n_extra]
-    return out
 
 
 def compact_contacts(
@@ -516,8 +487,8 @@ def compact_contacts(
     c = contacts.body_a.shape[0]
     if max_contacts <= 0 or c <= max_contacts:
         return contacts, jnp.int32(0)
-    # argsort+slice instead of lax.top_k: k is thousands here and TPU
-    # top_k degrades to O(n·k); one XLA sort is far cheaper
+    # argsort+slice instead of lax.top_k: k is thousands here, and one
+    # sort costs the same whatever k is
     score = jnp.where(contacts.active, contacts.depth, -jnp.inf)
     idx = jnp.argsort(-score)[:max_contacts]
     overflow = jnp.maximum(
@@ -530,18 +501,16 @@ def contact_capacity(state: SimState, cfg: SimConfig) -> int:
     """Total contact-slot count of one step under `cfg` (static), via
     eval_shape on the generation pipeline — used to size the warm-start
     buffers (engine.prepare_contacts)."""
-    if table_path(state, cfg) or hull_table_path(state, cfg):
-        from physics_tpu.ops.contact_table import table_shape
-
-        return table_shape(state.num_bodies, cfg)[2]
 
     def gen(s):
         from physics_tpu.ops.narrowphase import (
+            boxes_fast_path,
             hull_obb_prefilter,
             hulls_fast_path,
         )
 
-        cvx = convex_data(s)
+        fast = boxes_fast_path(cfg) or hulls_fast_path(s, cfg)
+        cvx = None if fast else convex_data(s)
         groups = []
         if cfg.ground_plane:
             groups.append(ground_contacts(s, cvx, cfg))
@@ -559,12 +528,7 @@ def contact_capacity(state: SimState, cfg: SimConfig) -> int:
         contacts, _ = compact_contacts(contacts, cfg.max_contacts)
         return contacts.key
 
-    c = int(jax.eval_shape(gen, state).shape[0])
-    if cfg.contact_solver == "pallas_banded":
-        from physics_tpu.solver.contacts_pallas import padded_contact_count
-
-        c = padded_contact_count(state.num_bodies, c, cfg)
-    return c
+    return int(jax.eval_shape(gen, state).shape[0])
 
 
 def _pad_axis(arr: Array, multiple: int, axis: int) -> Array:
@@ -598,82 +562,6 @@ def _chunk_contacts(
     ])
 
 
-def table_path(state: SimState, cfg: SimConfig) -> bool:
-    """True when the contact step routes through the fused bucket-aligned
-    contact table (_resolve_contacts_table) — the conditions its kernels
-    require. Static: depends only on cfg and capacities.
-
-    Two broad phases can feed the table: the bucketed sweep (sorted
-    ranks), or env_blocks packed envs (identity order, in-kernel
-    candidate derivation with a same-env mask — requires bp_inkernel)."""
-    if not (
-        cfg.contact_solver == "pallas_banded" and cfg.contact_table
-        and cfg.boxes_only and cfg.pair_collisions
-        and state.num_bodies > 1
-    ):
-        return False
-    if cfg.broadphase == "sweep":
-        return cfg.pair_buckets
-    if cfg.broadphase == "env_blocks":
-        k = cfg.env_block_size
-        return (cfg.bp_inkernel and k > 1 and 128 % k == 0
-                and state.num_bodies % k == 0)
-    return False
-
-
-def anchored_path(state: SimState, cfg: SimConfig) -> bool:
-    """True when contact_rebuild > 1 actually engages the persistent
-    anchored-contact pipeline: a contact-table path with fuse_prep —
-    the BOX table on either the bucketed sweep broad phase (no
-    bp_inkernel — the rebuild branch builds candidates in XLA) or the
-    env_blocks packed-env broad phase (identity order, in-kernel
-    candidates), or the HULL table (round 5: the hull kernel emits the
-    same body-frame anchor rows, and anchors are shape-agnostic so the
-    solve kernel's refresh math is shared). Anywhere else the engine
-    rebuilds every step — full physics, just without the amortization
-    (prepare_contacts warns). Static: cfg + shapes only."""
-    if not (cfg.contact_rebuild > 1 and cfg.fuse_prep):
-        return False
-    if hull_table_path(state, cfg):
-        return True          # hull table already requires the bucketed
-        #                      sweep without bp_inkernel
-    if not table_path(state, cfg):
-        return False
-    if cfg.broadphase == "env_blocks":
-        return True          # table_path already requires bp_inkernel
-    return cfg.broadphase == "sweep" and not cfg.bp_inkernel
-
-
-def hull_table_path(state: SimState, cfg: SimConfig) -> bool:
-    """True when the contact step routes through the fused HULL contact
-    table (ops/hull_table.py) — the hulls_only analogue of table_path.
-    Static: cfg + array shapes only."""
-    from physics_tpu.ops.narrowphase import hulls_fast_path
-
-    from physics_tpu.ops.hull_table import MAX_TABLE_HULL_TYPES
-
-    return bool(
-        cfg.contact_solver == "pallas_banded" and cfg.contact_table
-        and cfg.hull_table and cfg.pair_collisions
-        and cfg.broadphase == "sweep" and cfg.pair_buckets
-        and state.num_bodies > 1 and not cfg.bp_inkernel
-        and hulls_fast_path(state, cfg)
-        # round 5: the fused hull kernel runs one SAT pass per ordered
-        # type pair with sided coefficient tables — small libraries
-        # (H <= MAX_TABLE_HULL_TYPES) get the fused+anchored pipeline;
-        # larger ones ride the type-pair-segmented XLA fast path
-        and state.hulls.verts.shape[0] <= MAX_TABLE_HULL_TYPES
-    )
-
-
-def fused_integration(state: SimState, cfg: SimConfig) -> bool:
-    """True when the solve kernel's fused integration epilogue replaces
-    engine.integrate_positions' pos/quat math (cfg.fuse_integrate on the
-    table path; compat semantics Q2/Q6 stay in XLA)."""
-    return cfg.fuse_integrate and not cfg.compat and (
-        table_path(state, cfg) or hull_table_path(state, cfg))
-
-
 def resolve_contacts(
     state: SimState,
     cfg: SimConfig,
@@ -686,89 +574,20 @@ def resolve_contacts(
     the mesh axis; the Jacobi solve psums impulse deltas each sweep so the
     result matches the single-device solve.
     """
-    n = state.num_bodies
-    if cfg.contact_rebuild > 1 and (
-            shard is not None or not anchored_path(state, cfg)):
-        # the persistent anchored pipeline only engages on the unsharded
-        # box contact-table path (anchored_path); everywhere else
-        # contact_rebuild degrades to per-step rebuild — full physics,
-        # just without the amortization. Normalized HERE so every
-        # downstream cfg.contact_rebuild consultation (table kernel
-        # anchor rows, solve-kernel refresh, depth-metric source) sees
-        # one consistent answer. prepare_contacts warns at setup time.
-        cfg = cfg.replace(contact_rebuild=1)
-    use_pallas = cfg.contact_solver == "pallas_banded"
-    if use_pallas:
-        if cfg.pair_collisions and cfg.broadphase not in (
-            "sweep", "env_blocks"
-        ):
-            raise ValueError(
-                "contact_solver='pallas_banded' requires broadphase='sweep' "
-                "or 'env_blocks' (its band guarantee comes from their rank "
-                "windows)"
-            )
+    from physics_tpu.ops.narrowphase import boxes_fast_path, hulls_fast_path
 
-    # fused bucket-aligned contact table: broad phase → ONE kernel (SAT +
-    # ground + per-bucket compaction) → banded solve with static bases —
-    # no XLA narrow phase, no contact sort/gather/pad (ops/contact_table.py)
-    if table_path(state, cfg) or hull_table_path(state, cfg):
-        return _resolve_contacts_table(state, cfg, shard=shard)
-
-    from physics_tpu.ops.narrowphase import hulls_fast_path
-
-    boxes_fast = cfg.boxes_only and jax.default_backend() == "tpu"
     hulls_fast = hulls_fast_path(state, cfg)
-    pallas_pairs = (
-        cfg.narrowphase_pallas and cfg.boxes_only
-        and cfg.broadphase == "sweep" and cfg.pair_buckets
-    )
-    # the convex presentation ([N, Vc, 3] vertex/face tensors, minor dim
-    # 3 padded to 128 lanes) is only read by the GENERIC narrow-phase
-    # paths — the slot-major fast paths (boxes on TPU, banded Pallas
-    # pairs, shared-hull scenes) never touch it; skip the build entirely
-    need_cvx = not (hulls_fast or boxes_fast)
+    # the convex presentation ([N, Vc, 3] vertex/face tensors) is only read
+    # by the GENERIC narrow-phase paths — the slot-major fast paths (boxes,
+    # shared-hull scenes) never touch it; skip the build entirely
+    need_cvx = not (hulls_fast or boxes_fast_path(cfg))
     cvx = convex_data(state) if need_cvx else None
     groups = []
-    lo_rows, rb_rows = [], []
     metrics: Dict = {}
     axis_name = shard[0] if shard else None
 
-    # body rank table for the banded solver's rank-row carries: sweep order
-    # when pair collisions use the sweep, identity otherwise. Zero
-    # per-contact gathers: group layouts are mirrored below.
-    body_order = None
-    rank_arr = None
-    if use_pallas:
-        if cfg.pair_collisions and cfg.broadphase == "sweep" and n > 1:
-            from physics_tpu.ops.broadphase import body_aabbs, sweep_order
-
-            body_order = sweep_order(state, body_aabbs(state))
-            rank_arr = jnp.zeros((n,), jnp.int32).at[body_order].set(
-                jnp.arange(n, dtype=jnp.int32))
-        else:
-            rank_arr = jnp.arange(n, dtype=jnp.int32)
-
     if cfg.ground_plane:
         gc = ground_contacts(state, cvx, cfg)
-        if use_pallas:
-            # rank rows are built on the FULL layout, then chunked in
-            # lockstep with the contacts
-            cg = gc.body_a.shape[0]
-            kg = cg // n
-            if boxes_fast or hulls_fast:
-                # _ground_contacts_boxes / _ground_contacts_hulls_fast:
-                # slot-major [k·N], body = iota
-                lo_g = jnp.concatenate([rank_arr] * kg)
-            else:
-                # generic ground_contacts: body-major [N, k]
-                lo_g = jnp.broadcast_to(
-                    rank_arr[:, None], (n, kg)).reshape(-1)
-            rb_g = jnp.full((cg,), -1, jnp.int32)
-            if shard:
-                lo_g = _chunk(lo_g, *shard)
-                rb_g = _chunk(rb_g, *shard)
-            lo_rows.append(lo_g)
-            rb_rows.append(rb_g)
         if shard:
             gc = _chunk_contacts(gc, *shard)
         groups.append(gc)
@@ -785,7 +604,7 @@ def resolve_contacts(
             # two-phase hull narrow phase: OBB face-SAT prefilter drops
             # separated pairs and compacts survivors before the full
             # hull-SAT support matmuls (whose cost scales with candidate
-            # lanes); the rank rows ride the same compaction
+            # lanes)
             from physics_tpu.ops.narrowphase import hull_obb_prefilter
 
             cand, pre_ovf = hull_obb_prefilter(
@@ -799,112 +618,31 @@ def resolve_contacts(
                 _chunk(cand.body_b, *shard),
                 _chunk(cand.mask, *shard),
                 cand.overflow,
-                _chunk(cand.rank_a, *shard),
-                _chunk(cand.rank_b, *shard),
             )
-        pc = pair_contacts(state, cvx, cand, cfg, chunked=shard is not None)
-        groups.append(pc)
+        groups.append(pair_contacts(state, cvx, cand, cfg))
         metrics["pair_overflow"] = cand.overflow
-        if use_pallas:
-            cpair = pc.body_a.shape[0]
-            p = cand.body_a.shape[0]
-            kk = cpair // p
-            # layout must mirror pair_contacts' ACTUAL dispatch: the
-            # banded Pallas narrow phase emits slot-major on EVERY
-            # backend (it is interpreted off-TPU), while the XLA fast
-            # path is TPU-gated — keying this off the backend alone
-            # misaligned ranks with contacts on CPU (impulses landed on
-            # the wrong bodies; caught by experiments/table_diff.py)
-            if boxes_fast or pallas_pairs or hulls_fast:
-                # _pair_contacts_boxes[_pallas] and the shared-hull fast
-                # epilogue: slot-major concat([x]*kk)
-                lo_p = jnp.concatenate([cand.rank_a] * kk)
-                rb_p = jnp.concatenate([cand.rank_b] * kk)
-            else:
-                # generic pair_contacts: pair-major [P, kk] broadcast
-                lo_p = jnp.broadcast_to(
-                    cand.rank_a[:, None], (p, kk)).reshape(-1)
-                rb_p = jnp.broadcast_to(
-                    cand.rank_b[:, None], (p, kk)).reshape(-1)
-            lo_rows.append(lo_p)
-            rb_rows.append(rb_p)
 
     if not groups:
         return state, metrics
 
     contacts = concat_contacts(*groups)
+    max_c = cfg.max_contacts // (shard[1] if shard else 1)
+    contacts, dropped = compact_contacts(contacts, max_c)
+    if cfg.max_contacts > 0:
+        if axis_name:
+            dropped = jax.lax.psum(dropped, axis_name)
+        metrics["contact_overflow"] = dropped
     c_total = contacts.key.shape[0]
+    use_warm = (
+        shard is None
+        and state.contact_key.shape[0] == c_total
+        and c_total > 0
+    )
+    warm = (state.contact_key, state.contact_lam) if use_warm else None
 
-    if use_pallas:
-        # contact compaction folds into the banded solver's rank sort (by
-        # LOWEST RANK on overflow, not deepest — overflow is still counted)
-        from physics_tpu.solver.contacts_pallas import (
-            padded_contact_count,
-            solve_impulses_banded,
-            solve_shape,
-        )
-
-        lo_all = jnp.concatenate(lo_rows)
-        rb_all = jnp.concatenate(rb_rows)
-        if shard:
-            # narrow phase ran sharded; reassemble the FULL contact list
-            # (cheap tiled all_gathers over ICI) for the replicated rank
-            # sort + prep, then the sweep tiles split across the axis
-            # (solve_impulses_banded shard=): per-sweep z-delta psums.
-            def _ag(x):
-                return jax.lax.all_gather(
-                    x, axis_name, axis=x.ndim - 1, tiled=True)
-
-            contacts = Contacts(
-                *[_ag(getattr(contacts, f)) for f in Contacts._fields])
-            lo_all = _ag(lo_all)
-            rb_all = _ag(rb_all)
-            c_total = contacts.key.shape[0]
-
-        c_eff = (min(c_total, cfg.max_contacts) if cfg.max_contacts > 0
-                 else c_total)
-        cp = padded_contact_count(n, c_eff, cfg)
-        if shard:
-            # the sharded sweep splits whole tiles across the axis: round
-            # cp up to tile·n_shards. tile itself grows with cp (up to
-            # cfg.pallas_tile), so iterate to the fixed point.
-            for _ in range(3):
-                tile_sz, _, _ = solve_shape(n, cp, cfg)
-                cp_new = -(-cp // (tile_sz * shard[1])) * (
-                    tile_sz * shard[1])
-                if cp_new == cp:
-                    break
-                cp = cp_new
-        use_warm = state.contact_key.shape[0] == cp and c_eff > 0
-        warm = (state.contact_key, state.contact_lam) if use_warm else None
-        # NOTE: returns the rank-sorted, tile-padded contacts struct — the
-        # returned lam3 aligns with IT, so warm bookkeeping below must too
-        vel, omega, pvel, pomega, lam3, solve_metrics, contacts = (
-            solve_impulses_banded(
-                state, contacts, cfg, body_order, warm=warm,
-                ranks=(lo_all, rb_all),
-                capacity=cp,
-                shard=shard,
-            )
-        )
-    else:
-        max_c = cfg.max_contacts // (shard[1] if shard else 1)
-        contacts, dropped = compact_contacts(contacts, max_c)
-        if cfg.max_contacts > 0:
-            if axis_name:
-                dropped = jax.lax.psum(dropped, axis_name)
-            metrics["contact_overflow"] = dropped
-        c_total = contacts.key.shape[0]
-        use_warm = (
-            shard is None
-            and state.contact_key.shape[0] == c_total
-            and c_total > 0
-        )
-        warm = (state.contact_key, state.contact_lam) if use_warm else None
-
-        vel, omega, pvel, pomega, lam3, solve_metrics = solve_impulses(
-            state, contacts, cfg, axis_name=axis_name, warm=warm
-        )
+    vel, omega, pvel, pomega, lam3, solve_metrics = solve_impulses(
+        state, contacts, cfg, axis_name=axis_name, warm=warm
+    )
     # split-impulse position correction: pseudo velocities integrate into
     # the pose immediately and never enter the momentum state
     dt = jnp.float32(cfg.dt)
@@ -923,351 +661,3 @@ def resolve_contacts(
             contact_lam=jnp.stack([l0, l1, l2]),
         )
     return state, {**metrics, **solve_metrics}
-
-
-def _resolve_contacts_table(
-    state: SimState, cfg: SimConfig,
-    shard: Tuple[str, int] | None = None,
-) -> Tuple[SimState, Dict]:
-    """Contact resolution through the fused bucket-aligned contact table
-    (cfg.contact_table): broad phase emits bucketed candidates, ONE Pallas
-    kernel produces the compacted rank-banded contact table (SAT manifolds
-    + ground corners + per-bucket compaction), and the banded solver
-    consumes it with static tile bases. See ops/contact_table.py.
-
-    `shard=(axis_name, n_shards)` (inside shard_map, body state
-    replicated) splits the step by BUCKET RANGE: the rank sort, geometry
-    table and candidate emission run replicated (deterministic —
-    identical on every shard), each shard's table kernel builds its own
-    nb/n_shards buckets, the local tables are all-gathered (tiled, over
-    ICI — [16+8, cp] f32), and the banded solve splits its sweep tiles
-    across the axis with a per-sweep z-delta psum
-    (contacts_pallas.banded_sweeps_sharded). Requires nb % n_shards == 0
-    (i.e. n > 128·n_shards, padded scenes round up) and runs the
-    unfused solve (fuse_prep/fuse_integrate are single-device-only)."""
-    from physics_tpu.ops.broadphase import PairCandidates, body_aabbs, sweep_order
-    from physics_tpu.ops.contact_table import (
-        bucket_contact_table,
-        table_shape,
-        unified_geom,
-    )
-    from physics_tpu.solver.contacts_pallas import solve_impulses_table
-
-    n = state.num_bodies
-    hulls = hull_table_path(state, cfg)
-    # resolve_contacts normalized contact_rebuild: > 1 here implies the
-    # anchored_path preconditions hold and shard is None
-    anchored = cfg.contact_rebuild > 1
-    if anchored:
-        # persistent anchored contacts: the sort + candidates are built
-        # inside the rebuild branch of the cond below, every K-th step
-        body_order = None
-        cand = None
-    elif cfg.broadphase == "env_blocks":
-        # packed envs: the body id IS the rank (envs.pack_envs layout) —
-        # no sort anywhere in the step
-        body_order = None
-    else:
-        body_order = sweep_order(state, body_aabbs(state))
-    if not anchored:
-        # bp_inkernel: the kernel derives candidates from the sorted
-        # window itself — only the rank sort above survives in XLA
-        cand = None if cfg.bp_inkernel else pair_candidates(state, cfg)
-    nb, ccap, cp = table_shape(n, cfg)
-
-    fuse = fused_integration(state, cfg) and shard is None
-    # table-aligned warm buffers use the component-form [2, cp] keys
-    # (ops/contact_table.table_keys) — exact at any n, unlike the
-    # generic paths' packed int32 keys
-    use_warm = state.contact_key.shape == (2, cp)
-
-    if cfg.contact_rebuild > 1:
-        # persistent anchored contacts: the broad phase + table kernel
-        # run every K-th step; between rebuilds the persisted table
-        # (with body-frame anchors) is refreshed in the solve kernel's
-        # prep sweep from CURRENT transforms — contact discovery is
-        # delayed ≤ K−1 steps, everything else is exact per step.
-        from physics_tpu.ops.contact_table import CT2_ROWS
-
-        assert shard is None and cfg.fuse_prep, \
-            "resolve_contacts normalization should make this unreachable"
-        if (state.contact_table.shape != (CT2_ROWS, cp)
-                or state.contact_order.shape[0] != n or not use_warm):
-            raise ValueError(
-                "cfg.contact_rebuild > 1 needs the persisted-table "
-                "buffers — call engine.prepare_contacts(state, cfg)")
-        # env_blocks packed envs: the body id IS the rank (identity
-        # order, no sorts); candidates derive in-kernel (bp_inkernel).
-        # The persisted contact_order stays the prepared arange — the
-        # geometry table and solve take order=None (no gather at all).
-        env_mode = cfg.broadphase == "env_blocks"
-
-        def _rebuild(st):
-            if env_mode:
-                order, cand_r = None, None
-            else:
-                order = sweep_order(st, body_aabbs(st))
-                cand_r = pair_candidates(st, cfg)
-            geom_r = unified_geom(st, cfg, order, hulls=hulls)
-            if hulls:
-                from physics_tpu.ops.hull_table import (
-                    bucket_hull_contact_table,
-                )
-
-                table_r, meta_r, warm_r = bucket_hull_contact_table(
-                    st, cand_r, cfg, order,
-                    prev=(st.contact_key, st.contact_lam), geom=geom_r)
-            else:
-                table_r, meta_r, warm_r = bucket_contact_table(
-                    st, cand_r, cfg, order,
-                    prev=(st.contact_key, st.contact_lam), geom=geom_r)
-            m = meta_r[0].reshape(nb, 128)
-            win_ovf = (jnp.sum(m[:, 3]).astype(jnp.int32)
-                       if cand_r is None else cand_r.overflow)
-            ovf = jnp.stack([
-                win_ovf + jnp.sum(m[:, 2]).astype(jnp.int32),
-                jnp.sum(m[:, 0]).astype(jnp.int32),
-            ])
-            ref_r = jnp.concatenate([st.pos, st.quat], axis=1)
-            return table_r, st.contact_order if env_mode else order, \
-                geom_r, warm_r, ovf, ref_r
-
-        # per-bucket motion gate (round 5): with vel_factor > 0 on a BOX
-        # table path, refresh steps run the GATED table kernel — buckets
-        # whose bodies (or the forward window's) move fast enough to
-        # tunnel recompute their contacts from CURRENT geometry with the
-        # frozen rank order + the in-kernel broad phase, while settled
-        # buckets pass the persisted block through (then warm-match
-        # against their own identical keys → identity λ carry). This
-        # replaces the global max|v| guard, which refused the refresh
-        # path forever on scenes with ANY residual motion (avalanche
-        # piles, raining floors, one jiggling env of 4096). Hull paths
-        # keep the global guard (the hull kernel has no in-kernel broad
-        # phase yet).
-        gated = (not hulls) and cfg.contact_rebuild_vel_factor > 0
-
-        def _refresh(st):
-            order = None if env_mode else st.contact_order
-            geom_r = unified_geom(st, cfg, order, hulls=hulls)
-            if gated:
-                # DISPLACEMENT-since-build gate: each body's pose at its
-                # bucket's last recompute is persisted (st.contact_ref),
-                # so the predicate measures accumulated motion exactly —
-                # a bucket fires when any of its bodies (or the forward
-                # window's) moved more than vel_factor slops since its
-                # contacts were built, and its ref resets on recompute.
-                # K-independent (a velocity-based threshold coupled to K
-                # over-fired at large K: v5e packed-env A/B, round 5)
-                # and self-paced: a slow mover recomputes only every
-                # ceil(vf·slop / (v·dt)) steps. Rotation rides a
-                # small-angle surface-motion bound: |Δq|₂ ≈ θ/2, so
-                # 2·|Δq|·r bounds the contact-point drift (sign-folded —
-                # q and −q are one rotation).
-                ref = st.contact_ref
-                dp = jnp.max(jnp.abs(st.pos - ref[:, 0:3]), axis=1)
-                dq2 = jnp.minimum(
-                    jnp.sum((st.quat - ref[:, 3:7]) ** 2, axis=1),
-                    jnp.sum((st.quat + ref[:, 3:7]) ** 2, axis=1))
-                r_body = jnp.sqrt(
-                    jnp.sum(st.shapes.params ** 2, axis=1))
-                disp = dp + 2.0 * jnp.sqrt(dq2) * r_body   # [n]
-                if order is not None:
-                    disp = disp[order]
-                dpp = jnp.pad(disp, (0, nb * 128 - n))
-                dmb = jnp.max(dpp.reshape(nb, 128), axis=1)
-                # forward windows reach into the NEXT bucket's ranks: a
-                # mover there can create/destroy this bucket's contacts
-                dmb = jnp.maximum(dmb, jnp.concatenate(
-                    [dmb[1:], jnp.zeros((1,), dmb.dtype)]))
-                gate_arr = dmb > jnp.float32(
-                    cfg.contact_rebuild_vel_factor
-                    * cfg.penetration_slop)
-                table_r, meta_r, warm_r = bucket_contact_table(
-                    st, None, cfg, order,
-                    prev=(st.contact_key, st.contact_lam), geom=geom_r,
-                    gate=(gate_arr, st.contact_table))
-                m = meta_r[0].reshape(nb, 128)
-                ovf_new = jnp.stack([
-                    (jnp.sum(m[:, 3]) + jnp.sum(m[:, 2])
-                     ).astype(jnp.int32),
-                    jnp.sum(m[:, 0]).astype(jnp.int32),
-                ])
-                # worst-of: the persisted rebuild counters and this
-                # step's gated recompute (passthrough buckets report 0)
-                ovf = jnp.maximum(st.contact_meta, ovf_new)
-                # fired buckets' bodies reset their displacement ref
-                if env_mode:
-                    rank_of = jnp.arange(n, dtype=jnp.int32)
-                else:
-                    rank_of = jnp.zeros((n,), jnp.int32).at[order].set(
-                        jnp.arange(n, dtype=jnp.int32))
-                fired = gate_arr[rank_of // 128]
-                pose = jnp.concatenate([st.pos, st.quat], axis=1)
-                ref_r = jnp.where(fired[:, None], pose, ref)
-                return (table_r,
-                        st.contact_order if env_mode else order,
-                        geom_r, warm_r, ovf, ref_r)
-            # slot-aligned warm start: last step's impulses, same slots
-            warm_r = jnp.concatenate(
-                [st.contact_lam, jnp.zeros((5, cp), jnp.float32)])
-            return st.contact_table, st.contact_order, geom_r, warm_r, \
-                st.contact_meta, st.contact_ref
-
-        pred = state.step_count % cfg.contact_rebuild == 0
-        if cfg.contact_rebuild_vel_factor > 0 and not gated:
-            # global motion guard (hull table paths): a body moving v
-            # covers v·dt·K before the next scheduled rebuild — rebuild
-            # NOW if that could tunnel past the slop
-            vmax = jnp.max(jnp.abs(state.vel))
-            pred = pred | (
-                vmax * jnp.float32(cfg.dt * cfg.contact_rebuild)
-                > jnp.float32(cfg.contact_rebuild_vel_factor
-                              * cfg.penetration_slop))
-        r_it = cfg.contact_refresh_iters
-        if 0 < r_it < cfg.contact_iters:
-            # refresh steps run a SHORTER sweep schedule: the warm start
-            # is slot-exact (same contacts, λ carried) and geometry
-            # moved one step, so warm PGS re-converges in a few sweeps.
-            # The solve moves inside both cond branches (each compiles
-            # its own kernel; the rebuild branch keeps the full
-            # schedule). Envelope re-measured on adoption — see
-            # scenes.pile_config.
-            def _with_solve(mk, c2):
-                def br(st):
-                    table_r, order, geom_r, warm_r, ovf_r, ref_r = mk(st)
-                    out = solve_impulses_table(
-                        st, table_r, c2, None if env_mode else order,
-                        warm_rows=warm_r, geom=geom_r, fuse=fuse)
-                    return out, (table_r, order, ovf_r, ref_r)
-                return br
-
-            # the kernel's sweep count is max(vel, pos) + 1 — both
-            # schedules must shrink or the grid doesn't
-            refresh_cfg = cfg.replace(
-                contact_iters=r_it,
-                position_iters=min(cfg.position_iters, r_it))
-            (vel, omega, pvel, pomega, lam3, solve_metrics, keys,
-             posquat), (table, body_order, ovf, ref_out) = jax.lax.cond(
-                pred,
-                _with_solve(_rebuild, cfg),
-                _with_solve(_refresh, refresh_cfg),
-                state)
-        else:
-            table, body_order, geom, warm_rows, ovf, ref_out = \
-                jax.lax.cond(pred, _rebuild, _refresh, state)
-            vel, omega, pvel, pomega, lam3, solve_metrics, keys, \
-                posquat = solve_impulses_table(
-                    state, table, cfg,
-                    None if env_mode else body_order,
-                    warm_rows=warm_rows, geom=geom, fuse=fuse)
-        metrics = {
-            "pair_overflow": ovf[0],
-            "contact_overflow": ovf[1],
-            **solve_metrics,
-        }
-        dt = jnp.float32(cfg.dt)
-        if fuse:
-            new_pos, new_quat = posquat
-        else:
-            new_pos = state.pos + pvel * dt
-            dq = quat.exp_map(pomega * dt)
-            new_quat = quat.normalize(quat.mul(dq, state.quat))
-        state = state.replace(
-            vel=vel, omega=omega, pos=new_pos, quat=new_quat,
-            contact_key=keys, contact_lam=lam3,
-            contact_table=table, contact_order=body_order,
-            contact_meta=ovf, contact_ref=ref_out,
-        )
-        return state, metrics
-
-    # ONE rank-space geometry table shared by the narrow-phase and solve
-    # kernels (one stack, one order-gather, quat_to_mat computed once)
-    geom = unified_geom(state, cfg, body_order, hulls=hulls)
-    prev = (state.contact_key, state.contact_lam) if use_warm else None
-    if hulls:
-        from physics_tpu.ops.hull_table import bucket_hull_contact_table
-    if shard is not None:
-        axis_name, n_shards = shard
-        assert nb % n_shards == 0, (
-            f"sharded contact_table needs nb ({nb}) divisible by the "
-            f"axis size ({n_shards}) — pad the scene above "
-            f"128·{n_shards} bodies")
-        nb_l = nb // n_shards
-        idx = jax.lax.axis_index(axis_name)
-        bucket0 = idx * nb_l
-
-        def _loc(arr, per_bucket, axis=0):
-            return jax.lax.dynamic_slice_in_dim(
-                arr, bucket0 * per_bucket, nb_l * per_bucket, axis)
-
-        cand_l = None
-        if cand is not None:
-            from physics_tpu.ops.broadphase import bucket_shape
-
-            _, cap, _ = bucket_shape(n, cfg)
-            cand_l = PairCandidates(
-                _loc(cand.body_a, cap), _loc(cand.body_b, cap),
-                _loc(cand.mask, cap), cand.overflow,
-                _loc(cand.rank_a, cap), _loc(cand.rank_b, cap))
-        prev_l = None
-        if prev is not None:
-            prev_l = (_loc(prev[0], ccap, axis=1),
-                      _loc(prev[1], ccap, axis=1))
-        # both table kernels share the bucket-range contract
-        # (buckets=(bucket0, nb_l), scalar-prefetched bases)
-        mk = bucket_hull_contact_table if hulls else bucket_contact_table
-        table_l, meta_l, warm_l = mk(
-            state, cand_l, cfg, body_order, prev=prev_l, geom=geom,
-            buckets=(bucket0, nb_l))
-
-        def _ag(x):
-            return jax.lax.all_gather(x, axis_name, axis=x.ndim - 1,
-                                      tiled=True)
-
-        table, meta = _ag(table_l), _ag(meta_l)
-        warm_rows = _ag(warm_l) if warm_l is not None else None
-    elif hulls:
-        table, meta, warm_rows = bucket_hull_contact_table(
-            state, cand, cfg, body_order, prev=prev, geom=geom)
-    else:
-        table, meta, warm_rows = bucket_contact_table(
-            state, cand, cfg, body_order, prev=prev, geom=geom)
-    vel, omega, pvel, pomega, lam3, solve_metrics, keys, posquat = (
-        solve_impulses_table(state, table, cfg, body_order,
-                             warm_rows=warm_rows, geom=geom, fuse=fuse,
-                             shard=shard)
-    )
-    # candidates lost anywhere are pair_overflow — never silent:
-    # sweep-window overflow (XLA broad phase or in-kernel meta[.., 3])
-    # + survivors beyond the prefilter/compaction cap (meta[.., 2])
-    win_ovf = (jnp.sum(meta[0].reshape(nb, 128)[:, 3]).astype(jnp.int32)
-               if cand is None else cand.overflow)
-    metrics: Dict = {
-        "pair_overflow": win_ovf + jnp.sum(
-            meta[0].reshape(nb, 128)[:, 2]).astype(jnp.int32),
-        # per-bucket dropped contact counts live at meta[0, b·128]
-        "contact_overflow": jnp.sum(
-            meta[0].reshape(nb, 128)[:, 0]).astype(jnp.int32),
-        **solve_metrics,
-    }
-
-    if fuse:
-        # the solve kernel's epilogue already applied BOTH the
-        # split-impulse pseudo-position update and the velocity
-        # position integration (engine skips integrate_positions'
-        # pos/quat math — see engine.step_with_metrics)
-        new_pos, new_quat = posquat
-    else:
-        dt = jnp.float32(cfg.dt)
-        new_pos = state.pos + pvel * dt
-        dq = quat.exp_map(pomega * dt)
-        new_quat = quat.normalize(quat.mul(dq, state.quat))
-    state = state.replace(vel=vel, omega=omega, pos=new_pos, quat=new_quat)
-    if use_warm:
-        # stored TABLE-ALIGNED (unsorted): next step's kernel matches
-        # keys per bucket in its epilogue — no sort anywhere
-        state = state.replace(
-            contact_key=keys,
-            contact_lam=lam3,
-        )
-    return state, metrics

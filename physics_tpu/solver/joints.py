@@ -5,7 +5,7 @@ constraint contributes ≤3 rows of C, J, J̇, ks, kd; rows are assembled into a
 global block-sparse Jacobian over the 6N generalized coordinates, then
 λ = CG-solve(J·W·Jᵀ, rhs) and the constraint force is Jᵀλ.
 
-TPU-native redesign: there is **no sparse matrix**. Each joint slot stores
+Accelerator-native redesign: there is **no sparse matrix**. Each joint slot stores
 dense per-body 3×6 blocks (fixed capacity, masked), and the two matvecs the
 CG solver needs are expressed as gathers + einsums + segment-sums:
 
@@ -13,8 +13,8 @@ CG solver needs are expressed as gathers + einsums + segment-sums:
     Jᵀ · λ : einsum per slot → scatter-add back onto bodies
 
 All four joint types are computed unconditionally for every slot and the
-result is selected by type (compute-all-select beats lax.switch on the VPU
-for such small kernels; no divergent control flow).
+result is selected by type (compute-all-select beats lax.switch for such
+small kernels; no divergent control flow).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ import os
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from physics_tpu import SceneBuilder, SimConfig
 from physics_tpu.engine import rollout, step
@@ -44,6 +45,28 @@ def _rows(c):
                 int(c.key[i]),
             ))
     return sorted(rows)
+
+
+@pytest.mark.parametrize("backend, on_cpu_device, boxes_only, want", [
+    ("cpu", False, True, False),
+    ("gpu", False, True, True),
+    ("gpu", False, False, False),
+    ("gpu", True, True, False),
+], ids=["cpu", "gpu", "gpu-not-boxes", "gpu-backend-cpu-device"])
+def test_boxes_fast_path_gate(backend, on_cpu_device, boxes_only, want,
+                              monkeypatch):
+    """The box fast path runs wherever the step runs, except on the CPU:
+    the default backend decides, unless a jax.default_device says where
+    the step will run."""
+    from physics_tpu.ops import narrowphase
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    cfg = SimConfig(boxes_only=boxes_only)
+    if on_cpu_device:
+        with jax.default_device(jax.devices("cpu")[0]):
+            assert narrowphase.boxes_fast_path(cfg) is want
+    else:
+        assert narrowphase.boxes_fast_path(cfg) is want
 
 
 def test_ground_fast_path_matches_generic():
@@ -89,14 +112,14 @@ print("STACK_OK")
 
 
 def test_boxes_only_stack_rests():
-    """The full boxes_only pipeline (the benchmark path) holds a 3-box
+    """The full boxes_only pipeline (the benchmark config) holds a 3-box
     stack at rest.
 
     Runs in a SINGLE-device-CPU subprocess: the
     xla_force_host_platform_device_count=8 backend the suite uses for the
     sharding tests has a nondeterministic compile/exec deadlock on programs
     of this size (XLA CPU runtime bug — the same program runs in ~20 s on
-    one CPU device and 14.5 ms/step on a real TPU chip)."""
+    one CPU device)."""
     import subprocess
     import sys
 

@@ -99,35 +99,37 @@ def test_noncollidable_bodies_ignored():
     assert pairs_set(cand) == set()
 
 
-def test_sweep_pallas_kernel_matches_oracle():
-    """The Pallas window-mask kernel must match a NumPy oracle (runs only
-    when a TPU is attached; the CPU path uses the XLA formulation)."""
-    import jax
-    import pytest
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("pallas TPU kernel requires a TPU backend")
-    import jax.numpy as jnp
-    from physics_tpu.ops.sweep_pallas import sweep_window_masks
+def test_sweep_window_masks_match_oracle():
+    """The shifted-slice window masks of the sweep (sorted ranks i, i+d,
+    d = 1..k, AABB overlap, both collidable) match a NumPy oracle; bodies
+    without a shape sort to the end and pair with nothing."""
+    from physics_tpu.ops.broadphase import _sweep_masks
 
     rng = np.random.default_rng(0)
-    n, k = 256, 16
-    mins = np.sort(rng.uniform(-10, 10, (n, 3)).astype(np.float32), axis=0)
-    ext = rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32)
-    aabbs = np.stack([mins, mins + ext], axis=1)
-    aabbs = aabbs[np.argsort(aabbs[:, 0, 0])]
-    coll = rng.uniform(size=n) > 0.1
+    n, k = 96, 8
+    b = SceneBuilder()
+    for i in range(n):
+        j = b.add_body(pos=rng.uniform([-6, 0, -1], [6, 2, 1]))
+        if rng.uniform() > 0.1:
+            b.set_box(j, tuple(rng.uniform(0.1, 0.8, 3)))
+    state = b.build()
+    aabbs_j = body_aabbs(state)
+    order, mask, last = _sweep_masks(state, aabbs_j, k)
 
-    _, full_t = sweep_window_masks(jnp.asarray(aabbs), jnp.asarray(coll), k)
-    ref = np.zeros((k, n), bool)
+    aabbs = np.asarray(aabbs_j)
+    coll = np.asarray(state.shapes.stype) != 0
+    key = np.where(coll, aabbs[:, 0, 0], np.inf)
+    ref_order = np.argsort(key, kind="stable")
+    np.testing.assert_array_equal(np.asarray(order), ref_order)
+    a_s, c_s = aabbs[ref_order], coll[ref_order]
+    ref = np.zeros((n, k), bool)
     for d in range(1, k + 1):
-        nb_min = np.full((n, 3), np.inf, np.float32)
-        nb_max = np.full((n, 3), -np.inf, np.float32)
-        nb_c = np.zeros(n, bool)
-        nb_min[: n - d] = aabbs[d:, 0]
-        nb_max[: n - d] = aabbs[d:, 1]
-        nb_c[: n - d] = coll[d:]
-        lo = np.maximum(aabbs[:, 0], nb_min)
-        hi = np.minimum(aabbs[:, 1], nb_max)
-        ref[d - 1] = np.all(lo <= hi, axis=-1) & coll & nb_c
-    np.testing.assert_array_equal(np.asarray(full_t), ref)
+        lo = np.maximum(a_s[:n - d, 0], a_s[d:, 0])
+        hi = np.minimum(a_s[:n - d, 1], a_s[d:, 1])
+        ref[:n - d, d - 1] = (np.all(lo <= hi, axis=-1)
+                              & c_s[:n - d] & c_s[d:])
+    np.testing.assert_array_equal(np.asarray(mask), ref)
+    # overflow flag: the furthest window neighbor still x-overlaps
+    ref_last = np.zeros(n, bool)
+    ref_last[:n - k] = (a_s[k:, 0, 0] <= a_s[:n - k, 1, 0]) & c_s[:n - k]
+    np.testing.assert_array_equal(np.asarray(last), ref_last)

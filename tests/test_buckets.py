@@ -1,6 +1,5 @@
 """Rank-block bucketed candidate compaction (ops/broadphase.py,
-cfg.pair_buckets) — the layout that makes the banded Pallas narrow phase
-safe at any pair density (round-2 fix for the round-1 gating bug).
+cfg.pair_buckets): per-rank-block candidate lists with counted overflow.
 
 Kept small-N: every distinct SimConfig is a new XLA program on one CPU
 core."""
@@ -12,19 +11,18 @@ import jax
 
 from physics_tpu.config import SimConfig
 from physics_tpu.io.meshes import box_inertia
-from physics_tpu.ops.broadphase import bucket_shape, pair_candidates
+from physics_tpu.ops.broadphase import (
+    body_aabbs,
+    bucket_shape,
+    pair_candidates,
+    sweep_order,
+)
 from physics_tpu.scene import SceneBuilder
 
 
 def _cluster_state(n=40, seed=3, spacing=8.0):
-    """Sparse-in-rank-space scene: a few dense clusters far apart — the
-    layout that broke the contiguous compaction's band assumption.
-
-    Spacing is enough to keep clusters disjoint in the sweep but small in
-    absolute coordinates: the banded kernels' hi/lo bf16-split gathers are
-    exact to ~2⁻¹⁹ RELATIVE, so parity tolerances assume |x| ≲ 30 (a
-    50-unit spacing run measured ~5e-4 depth differences at x ≈ 150,
-    which is legitimate split error, not a contact bug)."""
+    """Sparse-in-rank-space scene: a few dense clusters far apart, so the
+    live candidates are spread over many rank buckets."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     for k in range(n):
@@ -56,11 +54,14 @@ def test_bucketed_matches_flat_sweep():
     cand_f = pair_candidates(state, CFG.replace(pair_buckets=False))
     assert _pair_set(cand_b) == _pair_set(cand_f)
     assert int(cand_b.overflow) == 0
-    # live candidates stay rank-major: rank_a non-decreasing per bucket and
-    # rank_a < rank_b everywhere (the banded kernels' band precondition)
+    # live candidates stay rank-major: the lower sweep rank of each pair is
+    # non-decreasing per bucket, and the higher one lies above it
     m = np.asarray(cand_b.mask)
-    ra = np.asarray(cand_b.rank_a)
-    rb = np.asarray(cand_b.rank_b)
+    order = np.asarray(sweep_order(state, body_aabbs(state)))
+    rank_of = np.empty_like(order)
+    rank_of[order] = np.arange(order.shape[0])
+    ra = rank_of[np.asarray(cand_b.body_a)]
+    rb = rank_of[np.asarray(cand_b.body_b)]
     assert np.all(ra[m] < rb[m])
     block, cap, nb = bucket_shape(state.num_bodies, CFG)
     ra2 = ra.reshape(nb, cap)
@@ -91,7 +92,7 @@ def test_bucketed_step_matches_flat_step():
     from physics_tpu.engine import step_with_metrics
 
     state = _cluster_state(24)
-    cfg_b = CFG.replace(contact_iters=8, narrowphase_pallas=False)
+    cfg_b = CFG.replace(contact_iters=8)
     cfg_f = cfg_b.replace(pair_buckets=False)
     out_b, m_b = jax.jit(step_with_metrics, static_argnums=1)(state, cfg_b)
     out_f, m_f = jax.jit(step_with_metrics, static_argnums=1)(state, cfg_f)
@@ -100,95 +101,3 @@ def test_bucketed_step_matches_flat_step():
         np.asarray(out_b.pos), np.asarray(out_f.pos), atol=1e-5)
     np.testing.assert_allclose(
         np.asarray(out_b.vel), np.asarray(out_f.vel), atol=1e-4)
-
-
-@pytest.mark.slow
-def test_bucketed_pallas_narrowphase_sparse_state():
-    """The round-1 failure mode: sparse active pairs spread over many ranks
-    must NOT lose contacts through the banded narrow phase when bucketed
-    (band_overflow == 0 and same contact count as the XLA narrow phase).
-
-    Manifold VALUES are pinned slot-for-slot against
-    `box_box_manifold_batched` — the SAME batched SAT the kernel runs —
-    evaluated on host-gathered pair poses (the composed
-    `_pair_contacts_boxes` graph is TPU-gated: XLA:CPU spins executing
-    it). The kernel's bf16 hi/lo split gathers are exact to ~2⁻¹⁹
-    relative. The generic vmapped SAT is only compared by contact COUNT:
-    on deeply-interpenetrating random states two correct SAT
-    implementations may break near-tie axis choices differently, yielding
-    different-but-valid manifolds (measured 0.055 position divergence
-    after one cold Baumgarte step — not a bug)."""
-    from physics_tpu.engine import step_with_metrics
-    from physics_tpu.maths import quaternion as quat
-    from physics_tpu.ops.boxbox_batched import _CAP, box_box_manifold_batched
-    from physics_tpu.ops.broadphase import pair_candidates
-    from physics_tpu.ops.narrowphase import _pair_contacts_boxes_pallas
-
-    state = _cluster_state(24)
-    cfg_pal = CFG.replace(
-        contact_iters=8, contact_solver="pallas_banded",
-        pallas_tile=128, pallas_window=128, bucket_block=8,
-        bucket_cap=128, sweep_window=12,
-    )
-    assert cfg_pal.narrowphase_pallas  # default-on
-
-    # --- contact-level parity vs the same-math batched SAT ---
-    cand = pair_candidates(state, cfg_pal)
-    cp = jax.jit(_pair_contacts_boxes_pallas,
-                 static_argnums=2)(state, cand, cfg_pal)
-
-    # expected manifolds: host-gather the candidate poses, one SAT call
-    ia = np.asarray(cand.body_a)
-    ib = np.asarray(cand.body_b)
-    mask = np.asarray(cand.mask)
-    pos = np.asarray(state.pos)
-    rot = np.asarray(quat.to_matrix(state.quat)).reshape(-1, 9)
-    half = np.asarray(state.shapes.params[:, :3])
-    t3 = lambda a: tuple(jnp.asarray(a[:, c]) for c in range(3))
-    t9 = lambda a: tuple(jnp.asarray(a[:, c]) for c in range(9))
-    man = jax.jit(lambda: box_box_manifold_batched(
-        t3(pos[ia]), t9(rot[ia]), t3(half[ia]),
-        t3(pos[ib]), t9(rot[ib]), t3(half[ib]), mosaic=False))()
-    exp_d = np.stack([np.asarray(d) for d in man.depth], 1)     # [P, CAP]
-    exp_v = np.stack([np.asarray(v) for v in man.valid], 1)
-    exp_p = np.stack(
-        [np.stack([np.asarray(c) for c in pt], -1) for pt in man.points],
-        1)                                                      # [P, CAP, 3]
-    exp_nrm = np.stack([np.asarray(c) for c in man.normal], -1)  # [P, 3]
-
-    p0 = ia.shape[0]
-    act = np.asarray(cp.active)
-    keys = np.asarray(cp.key)
-    n = state.num_bodies
-    checked = 0
-    for s in np.nonzero(act)[0]:
-        pair_slot, j = int(s % p0), int(s // p0)
-        assert mask[pair_slot]
-        a, b = ia[pair_slot], ib[pair_slot]
-        base = (min(a, b) * n + max(a, b)) * _CAP
-        bidx = int(keys[s]) - base
-        assert 0 <= bidx < _CAP, (keys[s], base)
-        assert exp_v[pair_slot, bidx] and exp_d[pair_slot, bidx] > 0
-        np.testing.assert_allclose(
-            float(cp.depth[s]), exp_d[pair_slot, bidx], atol=2e-4)
-        np.testing.assert_allclose(
-            np.asarray([cp.point[c][s] for c in range(3)]),
-            exp_p[pair_slot, bidx], atol=2e-3)
-        np.testing.assert_allclose(
-            np.asarray([cp.normal[c][s] for c in range(3)]),
-            exp_nrm[pair_slot], atol=2e-4)
-        checked += 1
-    # every expected contact surfaced, up to the per-pair slot budget kk
-    kk = cfg_pal.max_contacts_per_pair
-    per_pair = ((exp_d > 0) & exp_v & mask[:, None]).sum(1)
-    n_expected = int(np.minimum(per_pair, kk).sum())
-    assert checked == n_expected, (checked, n_expected)
-
-    # --- full step through the kernel: nothing dropped, state sane ---
-    cfg_gen = cfg_pal.replace(narrowphase_pallas=False)
-    out_p, m_p = jax.jit(step_with_metrics, static_argnums=1)(state, cfg_pal)
-    _, m_x = jax.jit(step_with_metrics, static_argnums=1)(state, cfg_gen)
-    assert int(m_p["band_overflow"]) == 0
-    assert int(m_p["contact_count"]) == int(m_x["contact_count"])
-    assert np.all(np.isfinite(np.asarray(out_p.pos)))
-    assert np.all(np.isfinite(np.asarray(out_p.vel)))

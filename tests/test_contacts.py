@@ -194,9 +194,9 @@ def test_warm_start_key_matching_sort_merge():
 
 
 def test_ten_box_stack_stable():
-    """BASELINE config 2 at its NAMED scale: ten boxes (the five-box test
-    above keeps a cheap-compile variant; this pins the actual config —
-    VERDICT round-1 'weak' item 4)."""
+    """The box-stack scene at its named scale: ten boxes (the five-box
+    test above keeps a cheap-compile variant; this pins the actual
+    scene)."""
     from physics_tpu.scenes import box_stack
 
     final, _ = rollout(box_stack(10), CFG_FULL, num_steps=600)

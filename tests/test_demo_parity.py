@@ -1,6 +1,6 @@
 """Golden trajectory parity: demo scene vs NumPy oracle.
 
-This is the north-star metric of BASELINE.json — max position error of the
+The parity metric is the max position error of the
 single-cube demo scene (reference: src/lib.rs:20-42) vs the reference
 semantics, stepped at fixed dt (SURVEY.md §4 item 2).
 """

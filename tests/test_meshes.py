@@ -133,7 +133,6 @@ def test_mesh_rain_scene_builds_and_steps():
     cfg = rain_config(12).replace(contact_iters=8)
     from physics_tpu.engine import prepare_contacts
 
-    state = prepare_contacts(state, cfg)  # production config persists the
-    #                                       anchored hull table buffers
+    state = prepare_contacts(state, cfg)  # warm-start buffers
     out = jax.jit(lambda s: step(s, cfg))(state)
     assert bool(np.all(np.isfinite(np.asarray(out.pos))))

@@ -1,5 +1,5 @@
 """Multi-hull-type fast path: type-pair-segmented candidates through the
-linear-SAT coefficient-matmul narrow phase (VERDICT r3 item 6).
+linear-SAT coefficient-matmul narrow phase.
 
 The reference has no collision at all (SURVEY.md §0); the single-type
 fast path's parity is pinned by tests/test_hullhull.py — here the
@@ -13,11 +13,11 @@ import pytest
 import jax
 
 from physics_tpu.engine import prepare_contacts, rollout, step_with_metrics
-from physics_tpu.scenes import mesh_rain_mixed, rain_xla_config
+from physics_tpu.scenes import mesh_rain_mixed, rain_config
 
 
 def _cfgs(n):
-    cfg_fast = rain_xla_config(n)
+    cfg_fast = rain_config(n)
     # generic path: same physics, vmapped per-pair hull manifolds
     cfg_gen = cfg_fast.replace(hull_fast=False)
     return cfg_fast, cfg_gen

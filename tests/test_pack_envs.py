@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from physics_tpu.config import SimConfig
-from physics_tpu.engine import prepare_contacts, step
+from physics_tpu.engine import step
 from physics_tpu.envs import pack_envs, stack_states, unpack_envs
 from physics_tpu.scenes import random_env
 
@@ -111,113 +111,3 @@ def test_packed_auto_reset():
     ref, _ = stepped(packed, packed)
     np.testing.assert_allclose(out.pos[:k], ref.pos[:k], atol=1e-6)
 
-
-def test_packed_contact_table():
-    """Packed envs through the fused contact table (env_blocks +
-    bp_inkernel: identity order, in-kernel same-env candidate masking)
-    match the plain env_blocks banded path, and the fully fused stack
-    (fuse_prep + fuse_integrate) stays warm-start stable over a drop."""
-    e, k = 16, 8
-    batched = _batched(e, k)
-    cfg_b = SimConfig(
-        ground_plane=True, pair_collisions=True, boxes_only=True,
-        contact_iters=8, broadphase="env_blocks", env_block_size=k,
-        contact_solver="pallas_banded", pallas_tile=128,
-        pallas_window=256, max_contacts=48 * e,
-    )
-    cfg_t = cfg_b.replace(contact_table=True, bp_inkernel=True,
-                          bucket_block=128)
-    from physics_tpu.solver.contacts import table_path
-    assert table_path(pack_envs(batched), cfg_t)
-
-    sb = prepare_contacts(pack_envs(batched), cfg_b)
-    st = prepare_contacts(pack_envs(batched), cfg_t)
-    for _ in range(6):
-        sb = step(sb, cfg_b)
-        st = step(st, cfg_t)
-    np.testing.assert_allclose(
-        np.asarray(sb.pos), np.asarray(st.pos), atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(sb.vel), np.asarray(st.vel), atol=1e-3)
-
-    # fused stack (fuse_prep + fuse_integrate) is a pure optimization:
-    # a 120-step warm rollout must track the plain table path closely
-    # (identical math; only f32 op placement differs)
-    from physics_tpu.engine import rollout, step_with_metrics
-    cfg_f = cfg_t.replace(fuse_prep=True, fuse_integrate=True)
-    sf, _ = rollout(st, cfg_f, num_steps=120)
-    s0, _ = rollout(st, cfg_t, num_steps=120)
-    assert np.all(np.isfinite(np.asarray(sf.pos)))
-    assert float(jnp.min(sf.pos[:, 1])) > 0.0
-    np.testing.assert_allclose(
-        np.asarray(sf.pos), np.asarray(s0.pos), atol=2e-3)
-    _, m = jax.jit(step_with_metrics, static_argnums=1)(sf, cfg_f)
-    assert int(m["pair_overflow"]) == 0
-    assert int(m["contact_overflow"]) == 0
-    assert int(m["contact_count"]) > 0
-
-
-def test_packed_pallas_solver():
-    e, k = 4, 4
-    batched = _batched(e, k)
-    cfg = SimConfig(
-        ground_plane=True, pair_collisions=True, boxes_only=True,
-        contact_iters=8, broadphase="env_blocks", env_block_size=k,
-        contact_solver="pallas_banded", pallas_tile=128, pallas_window=128,
-    )
-    cfg_j = cfg.replace(contact_solver="jacobi")
-    sp = prepare_contacts(pack_envs(batched), cfg)
-    sj = prepare_contacts(pack_envs(batched), cfg_j)
-    for _ in range(6):
-        sp = step(sp, cfg)
-        sj = step(sj, cfg_j)
-    assert np.all(np.isfinite(np.asarray(sp.pos)))
-    np.testing.assert_allclose(
-        np.asarray(sj.pos), np.asarray(sp.pos), atol=2e-4)
-    # all envs landed on/above the ground
-    assert float(jnp.min(sp.pos[:, 1])) > 0.0
-
-
-def test_packed_anchored_rebuild():
-    """Packed envs through the persistent anchored pipeline
-    (contact_rebuild > 1 on env_blocks: identity order, in-kernel
-    candidates; the whole table kernel runs every K-th step). With the
-    motion guard active the drop phase rebuilds per step; K=4 must
-    track K=1 through drop+settle and keep fresh metrics."""
-    from physics_tpu.engine import step_with_metrics
-    from physics_tpu.solver.contacts import anchored_path
-
-    e, k = 16, 8
-    batched = _batched(e, k)
-    cfg1 = SimConfig(
-        ground_plane=True, pair_collisions=True, boxes_only=True,
-        contact_iters=8, broadphase="env_blocks", env_block_size=k,
-        contact_solver="pallas_banded", pallas_tile=128,
-        pallas_window=256, max_contacts=48 * e,
-        contact_table=True, bp_inkernel=True, bucket_block=128,
-        fuse_prep=True, fuse_integrate=True,
-    )
-    cfg4 = cfg1.replace(contact_rebuild=4, contact_refresh_iters=4)
-    packed = pack_envs(batched)
-    assert anchored_path(packed, cfg4)
-    s1 = prepare_contacts(packed, cfg1)
-    s4 = prepare_contacts(packed, cfg4)
-    assert s4.contact_table.shape[0] == 32
-    stepm = jax.jit(step_with_metrics, static_argnums=1)
-    for _ in range(30):
-        s1, m1 = stepm(s1, cfg1)
-        s4, m4 = stepm(s4, cfg4)
-    assert np.all(np.isfinite(np.asarray(s4.pos)))
-    err = float(np.max(np.abs(np.asarray(s1.pos) - np.asarray(s4.pos))))
-    # round-5 displacement gate (vel_factor default 2.0): a moving
-    # bucket's contacts recompute once its bodies accumulate > 2 slops
-    # of motion, so discovery lags each crossing by ≤ ~2 slops of travel
-    # (vs the old global guard's rebuild-every-step identity). Over 30
-    # chaotic drop steps that compounds to centimetre-scale trajectory
-    # divergence — both are valid physics; the drop/settle penetration
-    # envelope (bench_batched_envs comment) pins the quality bound.
-    assert err < 1e-1, err
-    c1, c4 = int(m1["contact_count"]), int(m4["contact_count"])
-    assert abs(c4 - c1) <= max(2, c1 // 20), (c1, c4)
-    assert int(m4["pair_overflow"]) == 0
-    assert int(m4["contact_overflow"]) == 0

@@ -260,8 +260,8 @@ def test_live_viewer_wall_clock_pacing():
 def test_live_viewer_zoom_keys(monkeypatch):
     """+/- are the scroll-wheel analogue (reference camera.rs:146-150):
     a '+' tap must move the camera forward along its look direction via
-    CameraController.process_scroll — the round-5 cosmetic-parity item
-    (VERDICT r4: mouse-look/scroll zoom in the live viewer)."""
+    CameraController.process_scroll (mouse-look/scroll zoom in the live
+    viewer)."""
     import io
 
     import jax

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the fake 8-device CPU mesh (SURVEY.md §4.5)."""
+"""Multi-device sharding tests on the fake 8-device CPU mesh (SURVEY.md §4.5)."""
 
 import pytest
 
@@ -94,19 +94,18 @@ def test_hybrid_mesh_compiles_and_runs():
     assert np.all(np.isfinite(np.asarray(out.pos)))
 
 
-BANDED_CFG = SimConfig(
+PILE_CFG = SimConfig(
     compat=False, ground_plane=True, pair_collisions=True,
     boxes_only=True, broadphase="sweep", sweep_window=8,
     pair_buckets=True, bucket_block=32, max_pair_candidates=2048,
     max_contacts_per_pair=4, max_contacts=2048,
-    contact_solver="pallas_banded", contact_iters=8,
-    dt=1.0 / 120.0,
+    contact_iters=8, dt=1.0 / 120.0,
 )
 
 
 def _pile_256(seed=7):
-    """256-box grid pile spanning many rank buckets (VERDICT item 4: the
-    sharded banded solve must be exercised on a scene that spans shards)."""
+    """256-box grid pile spanning many rank buckets, so the sharded solve
+    is exercised on a scene that spans shards."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     for k in range(256):
@@ -118,73 +117,18 @@ def _pile_256(seed=7):
     return b.build()
 
 
-TABLE_CFG = SimConfig(
-    compat=False, ground_plane=True, pair_collisions=True,
-    boxes_only=True, broadphase="sweep", sweep_window=8,
-    pair_buckets=True, bucket_block=128, bucket_cap=256,
-    max_contacts_per_pair=4, max_contacts=2048,
-    contact_solver="pallas_banded", contact_table=True,
-    contact_iters=8, dt=1.0 / 120.0,
-)
-
-
-def _pile_1024(seed=9):
-    """1024-box pile → 8 rank buckets (one per virtual device): the
-    sharded TABLE path needs nb divisible by the axis size."""
-    rng = np.random.default_rng(seed)
-    b = SceneBuilder()
-    for k in range(1024):
-        x, z, layer = k % 32, (k // 32) % 8, k // 256
-        pos = (np.array([x * 1.3, 0.55 + 1.2 * layer, z * 1.3])
-               + rng.uniform(-0.05, 0.05, 3))
-        i = b.add_body(pos=pos, inertia=box_inertia((0.5,) * 3, 1.0))
-        b.set_box(i, (0.5, 0.5, 0.5), friction=0.5)
-    return b.build()
-
-
-def test_row_sharded_contact_table_matches_single_device():
-    """The FUSED contact-table pipeline sharded by bucket range across 8
-    devices (each shard's table kernel builds nb/8 buckets, local tables
-    all-gathered, sweep tiles split with per-sweep z-delta psum) ≈ the
-    single-device fused path — including warm-started steps (prev keys
-    sliced per bucket range). Closes VERDICT r3 weak item 3 (the fastest
-    path and the scaling path had diverged)."""
-    from physics_tpu.engine import prepare_contacts
-    from physics_tpu.solver.contacts import table_path
-
-    state = _pile_1024()
-    assert table_path(state, TABLE_CFG)
-    state = prepare_contacts(state, TABLE_CFG)
-    assert state.contact_key.shape[0] == 2    # component-form wide keys
-    mesh = make_mesh([8], ["row"])
-    rstep = row_sharded_step(TABLE_CFG, mesh, "row")
-    sstep = jax.jit(step, static_argnums=1)
-
-    s_ref, s_sh = state, state
-    for _ in range(3):
-        s_ref = sstep(s_ref, TABLE_CFG)
-        s_sh = rstep(s_sh)
-    err_p = float(np.max(np.abs(np.asarray(s_ref.pos) - np.asarray(s_sh.pos))))
-    err_v = float(np.max(np.abs(np.asarray(s_ref.vel) - np.asarray(s_sh.vel))))
-    assert np.all(np.isfinite(np.asarray(s_sh.pos)))
-    # warm impulses were carried on both sides by step 3
-    assert float(np.sum(np.asarray(s_sh.contact_lam))) != 0.0
-    assert err_p < 1e-3, (err_p, err_v)
-    assert err_v < 5e-3, (err_p, err_v)
-
-
-def test_row_sharded_banded_matches_single_device():
-    """Banded Pallas solve with contact tiles split across 8 devices
-    (per-sweep z-delta psum) ≈ the single-device fused kernel. 256 bodies
-    so the rank space genuinely spans shards."""
+def test_row_sharded_pile_matches_single_device():
+    """Bucketed-sweep box pile with candidates and contacts split across 8
+    devices (per-sweep impulse-delta psum) ≈ the single-device step. 256
+    bodies so the rank space genuinely spans shards."""
     state = _pile_256()
     mesh = make_mesh([8], ["row"])
-    rstep = row_sharded_step(BANDED_CFG, mesh, "row")
+    rstep = row_sharded_step(PILE_CFG, mesh, "row")
     sstep = jax.jit(step, static_argnums=1)
 
     s_ref, s_sh = state, state
     for _ in range(3):
-        s_ref = sstep(s_ref, BANDED_CFG)
+        s_ref = sstep(s_ref, PILE_CFG)
         s_sh = rstep(s_sh)
     err_p = float(np.max(np.abs(np.asarray(s_ref.pos) - np.asarray(s_sh.pos))))
     err_v = float(np.max(np.abs(np.asarray(s_ref.vel) - np.asarray(s_sh.vel))))
